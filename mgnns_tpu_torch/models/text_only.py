@@ -1,0 +1,40 @@
+"""Text-only classification model: text GCN -> linear head (eval forward).
+
+Port of the JAX package's ``mgnns_tpu/models/text_only.py`` (the reference's
+``Text_GCN.Model`` with its classification Linear attached,
+``models/Text_GCN.py:95,273``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mgnns_tpu_torch.nn import text_gcn
+from mgnns_tpu_torch.nn.core import linear, linear_init
+from mgnns_tpu_torch.utils import resolve_device
+
+
+def text_model_init(
+    vocab_size: int,
+    num_labels: int,
+    num_edges: int,
+    *,
+    seed: int = 0,
+    hidden_size: int = 300,
+    device="cuda",
+) -> dict:
+    """Parameters drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (raises when that is CUDA and no card is present)."""
+    g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    return {
+        "text_gcn": text_gcn.text_gcn_init(g, vocab_size, hidden_size, num_edges),
+        "head": linear_init(g, hidden_size, num_labels),
+    }
+
+
+def text_model_apply(params: dict, batch: dict, *, ngram: int) -> torch.Tensor:
+    """batch: ``ids`` [B, L], ``lens`` [B] int32, ``eids`` [B, L, W].
+    Returns logits [B, num_labels]."""
+    h = text_gcn.text_gcn_apply(params["text_gcn"], batch["ids"], batch["lens"],
+                                batch["eids"], ngram=ngram)
+    return linear(params["head"], h)

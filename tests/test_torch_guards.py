@@ -1,0 +1,118 @@
+"""The port's boundaries: it imports without JAX and never imports the JAX
+package, and its entry points run on the card or raise, never falling back
+to the CPU by themselves."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mgnns_tpu_torch")
+
+
+def test_imports_with_jax_blocked():
+    """Every module of the package imports with ``jax`` unimportable, and no
+    module of the JAX package gets loaded."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import mgnns_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(mgnns_tpu_torch.__path__, 'mgnns_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'mgnns_tpu' or m.startswith('mgnns_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.split()[-1]) >= 20
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(os.path.relpath(p, ROOT) for p in _sources()))
+def test_source_imports_neither_jax_nor_jax_package(path):
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "mgnns_tpu"), f"{path} imports {n}"
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default does not raise")
+
+
+def _tiny_predictor_args():
+    from mgnns_tpu_torch.graphs.pmi import PmiGraph
+    from mgnns_tpu_torch.models.text_only import text_model_init
+    from mgnns_tpu_torch.config import TextGraphConfig
+
+    graph = PmiGraph(5, np.zeros((0,), np.int64), np.zeros((0,), np.float32))
+    params = text_model_init(5, 2, graph.num_edges, device="cpu")
+    return dict(vocab=["PAD", "UNK", "a", "b", "c"], graph=graph,
+                graph_cfg=TextGraphConfig(), label_map={"x": 0, "y": 1},
+                params=params, text_only=True)
+
+
+def test_predictor_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from mgnns_tpu_torch.serving import Predictor
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        Predictor(**_tiny_predictor_args())
+
+
+def test_predictor_runs_on_cpu_when_asked():
+    from mgnns_tpu_torch.serving import Predictor
+
+    pred = Predictor(device="cpu", max_batch=2, **_tiny_predictor_args())
+    out = pred.predict([{"text": "a b"}, {"text": ""}, {"text": "c c a"}])
+    pred.close()
+    assert [sorted(o["probs"]) for o in out] == [["x", "y"]] * 3
+
+
+@pytest.mark.parametrize("entry", ["text_model_init", "mgnns_init", "to_torch"])
+def test_constructors_default_to_cuda_and_raise_without_it(no_cuda, entry):
+    from mgnns_tpu_torch import convert
+    from mgnns_tpu_torch.config import ModelConfig
+    from mgnns_tpu_torch.models.mgnns import mgnns_init
+    from mgnns_tpu_torch.models.text_only import text_model_init
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        if entry == "text_model_init":
+            text_model_init(10, 3, 4)
+        elif entry == "mgnns_init":
+            z = np.zeros((2, 2))
+            mgnns_init(ModelConfig(), num_edges=2, label_embedding=z, object_A=z,
+                       place_A=z, object_inp=z, place_inp=z)
+        else:
+            convert.to_torch({"w": np.zeros(3)})
+
+
+def test_bfloat16_config_raises():
+    from mgnns_tpu_torch.config import ModelConfig
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ModelConfig(compute_dtype="bfloat16")
