@@ -8,17 +8,28 @@ Run from the repository root on a machine with a CUDA card::
 Phases (any failure exits non-zero, and no result line is printed):
 
 0. the card: name and power limit, TF32 off for convolutions and matmuls
-   (the port's float32 serving computes in full float32);
-1. build every CUDA kernel of the serving path from ``mgnns_tpu_torch/kernels/csrc``;
-2. each kernel against its plain PyTorch version on the card, at the serving
-   shapes and a small odd one, exactly; kernel and plain times;
+   (the port computes in full float32);
+1. build every CUDA kernel (K1, K2) from ``mgnns_tpu_torch/kernels/csrc``;
+2. K1 against its plain PyTorch version on the card, at the model's shapes
+   and a small odd one, exactly; kernel and plain times;
+2b. K2 against its plain backward the same way: ``d_emb`` exactly, ``d_w``
+   within 1e-5 of scale (its sum over D runs in another order), the
+   constant-input tie case exactly; kernel and plain times;
 3. the serving path at the full width of the fusion model: a seeded
    synthetic corpus over a 20,153-word vocabulary, its PMI graph, 80/365-class
    label graphs, ``ModelConfig()`` weights from a seed, and a
    ``Predictor(max_batch=16)`` answering requests of 1, 5, 16 and 37 records;
    the launch counts of the run, one batch's logits against the same forward
    with K1's plain version, and one record's logits against the CPU; then the
-   text-only model the same way.
+   text-only model the same way;
+4. the training path at full width: ``Engine.learning`` (Adam, the default
+   learning rates, train-mode BatchNorm) for 2 epochs of 64 synthetic
+   records in batches of 16 from the port's loader, validation on 32 and a
+   test pass, with checkpoints and result files; the launch counts of the
+   run, the best checkpoint restored, one step with K1/K2 against the same
+   step with their plain versions, a text-only step on the card against the
+   CPU, 10 steps on one batch lowering its loss; step time, samples/s, peak
+   memory and one profiled step.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -26,25 +37,33 @@ line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
+import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
 import numpy as np
 import torch
 
-from mgnns_tpu_torch.config import ModelConfig, TextGraphConfig
+from mgnns_tpu_torch.config import DataConfig, ModelConfig, TextGraphConfig
+from mgnns_tpu_torch.data.dataset import TumblrDataset
+from mgnns_tpu_torch.data.loader import DeviceLoader
+from mgnns_tpu_torch.engine.metrics import confusion_init
+from mgnns_tpu_torch.engine.train import Engine, cross_entropy
 from mgnns_tpu_torch.graphs.cooccur import gen_A
 from mgnns_tpu_torch.graphs.pmi import cal_pmi
 from mgnns_tpu_torch.kernels import build, edge_max
 from mgnns_tpu_torch.models.mgnns import mgnns_apply, mgnns_init
-from mgnns_tpu_torch.models.text_only import text_model_init
+from mgnns_tpu_torch.models.text_only import text_model_apply, text_model_init
 from mgnns_tpu_torch.serving import Predictor
-from mgnns_tpu_torch.utils import tree_map, tree_to
+from mgnns_tpu_torch.utils import tree_leaves, tree_map, tree_to, tree_unflatten
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -157,6 +176,84 @@ def phase2_k1() -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+# ----------------------------------------------------------------- phase 2b
+
+
+def k2_bound_ms(lens: torch.Tensor, L: int, D: int, ngram: int) -> tuple[float, str]:
+    """Least time for K2 on these inputs: bytes it must move (the valid rows
+    of emb, w and the incoming gradient read once, lens read, d_emb and d_w
+    written) against its float32 work per valid window slot and lane: the
+    forward's multiply and max again, two compares and the tie split
+    (multiply, divide, twice), and a multiply-add each into d_emb and d_w."""
+    ln = lens.clamp(0, L).long().cpu()
+    W = 2 * ngram + 1
+    rows = int(ln.sum())
+    nbytes = rows * D * 4 * 2 + rows * W * 4 + ln.numel() * 4 + ln.numel() * L * (D + W) * 4
+    pairs = sum(sum(1 for j in range(n) for o in range(-ngram, ngram + 1) if 0 <= j + o < n)
+                for n in ln.tolist())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 12 * pairs * D / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase2b_k2() -> dict:
+    max_err = 0.0
+    for shape in ((16, 100, 300, 4), (3, 7, 5, 2)):
+        emb, w, lens = k1_inputs(*shape, seed=sum(shape) + 1)
+        up = torch.randn(emb.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                         device="cuda")
+        d_emb, d_w = edge_max._backward(emb, w, lens, up, shape[3])
+        torch.cuda.synchronize()
+        want_e, want_w = edge_max.window_max_aggregate_backward_plain(emb, w, lens, up, shape[3])
+        for name, got, want in (("d_emb", d_emb, want_e), ("d_w", d_w, want_w)):
+            nan = torch.isnan(want)
+            if not torch.equal(torch.isnan(got), nan):
+                raise SystemExit(f"K2 {shape}: {name} NaN pattern differs from the plain backward")
+            err = float((got[~nan] - want[~nan]).abs().max())
+            scale = max(1.0, float(want[~nan].abs().max()))
+            tol = 0.0 if name == "d_emb" else 1e-5 * scale
+            if err > tol:
+                raise SystemExit(f"K2 {shape}: {name} differs from the plain backward by {err} "
+                                 f"(tolerance {tol})")
+            max_err = max(max_err, err)
+            log(f"phase 2b: K2 {shape} {name} max |diff| {err} against the plain backward "
+                f"(tolerance {tol}, NaN pattern equal, {int(nan.sum())} NaN)")
+    # the constant-input case of tests/test_kernels.py:78: every message ties
+    emb = torch.full((2, 8, 4), 0.5, device="cuda")
+    w = torch.ones(2, 8, 5, device="cuda")
+    lens = torch.tensor([8, 5], dtype=torch.int32, device="cuda")
+    up = torch.arange(1, 5, dtype=torch.float32, device="cuda").expand(2, 8, 4).contiguous()
+    got = edge_max._backward(emb, w, lens, up, 2)
+    want = edge_max.window_max_aggregate_backward_plain(emb, w, lens, up, 2)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit("K2: the constant-input tie case differs from the plain backward")
+    log(f"phase 2b: K2 tie case exact ({len(torch.unique(want[1]))} distinct d_w values)")
+
+    B, L, D, ngram = 16, 100, 300, 4
+    emb, w, lens = k1_inputs(B, L, D, ngram, seed=1)
+    up = torch.randn(emb.shape, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda")
+    ms = cuda_ms(lambda: edge_max._backward(emb, w, lens, up, ngram), iters=200)
+    plain_ms = cuda_ms(lambda: edge_max.window_max_aggregate_backward_plain(emb, w, lens, up, ngram),
+                       iters=20)
+    bound_ms, bound_by = k2_bound_ms(lens, L, D, ngram)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            edge_max._backward(emb, w, lens, up, ngram)
+        torch.cuda.synchronize()
+    k = [e for e in device_kernels(prof) if "edge_max_bwd" in e.key]
+    device_us = k[0].self_device_time_total / k[0].count if k else float("nan")
+    log(f"phase 2b: K2 at B={B} L={L} D={D} g={ngram}: {ms * 1e3} us per call back to back "
+        f"(CUDA events), {device_us} us of kernel time per launch (profiler), plain "
+        f"{plain_ms * 1e3} us, bound {bound_ms * 1e3} us ({bound_by}); {card_line()}")
+    return {"name": "edge_max_bwd (K2)", "route": "cuda",
+            "source": "mgnns_tpu_torch/kernels/csrc/edge_max.cu",
+            "replaces": "mgnns_tpu/kernels/edge_max.py:91",
+            "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -212,9 +309,10 @@ def serve(pred: Predictor, texts: list[str], label: str) -> dict:
 
 def device_kernels(prof):
     """Kernel events of a profile averaged by name (the GPU side of the
-    model's named ranges is left out)."""
+    model's and the engine's named ranges is left out)."""
     return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("mgnns.")]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("mgnns.", "engine."))]
 
 
 def profile_forward(pred: Predictor, batch_np: dict) -> None:
@@ -263,7 +361,7 @@ def phase3(k1: dict) -> None:
     object_A, _ = gen_A(80, cfg.object_t, cooccurrence(80, r), cfg.gama)
     place_A, _ = gen_A(365, cfg.place_t, cooccurrence(365, r), cfg.gama)
     t0 = time.perf_counter()
-    params, consts = mgnns_init(
+    params, stats, consts = mgnns_init(
         cfg, num_edges=graph.num_edges,
         label_embedding=r.standard_normal((7, 300)).astype(np.float32),
         object_A=object_A, place_A=place_A,
@@ -277,7 +375,8 @@ def phase3(k1: dict) -> None:
         f"({time.perf_counter() - t0} s)")
     graph_cfg = TextGraphConfig()
     pred = Predictor(vocab=vocab, graph=graph, graph_cfg=graph_cfg, label_map=LABELS,
-                     params=params, consts=consts, cfg=cfg, image_backend="synthetic",
+                     params=params, batch_stats=stats, consts=consts, cfg=cfg,
+                     image_backend="synthetic",
                      max_batch=16, device="cuda")
     t0 = time.perf_counter()
     pred.warm()
@@ -289,10 +388,11 @@ def phase3(k1: dict) -> None:
     batch_np, _ = pred._encode_host([{"id": f"cmp{i}", "text": texts[i]} for i in range(16)])
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
     with torch.inference_mode():
-        logits = mgnns_apply(pred.params, pred.consts, batch, cfg=cfg)
+        logits = mgnns_apply(pred.params, pred.batch_stats, pred.consts, batch, cfg=cfg)[0]
         with mock.patch.object(edge_max, "window_max_aggregate",
                                edge_max.window_max_aggregate_plain):
-            logits_plain = mgnns_apply(pred.params, pred.consts, batch, cfg=cfg)
+            logits_plain = mgnns_apply(pred.params, pred.batch_stats, pred.consts, batch,
+                                       cfg=cfg)[0]
     scale = float(logits.abs().max())
     diff = float((logits - logits_plain).abs().max())
     # K1 equals its plain version exactly, so a difference can only come from
@@ -306,10 +406,11 @@ def phase3(k1: dict) -> None:
     # one record on the card against the same forward on the CPU
     one = {k: v[:1] for k, v in batch.items()}
     with torch.inference_mode():
-        card = mgnns_apply(pred.params, pred.consts, one, cfg=cfg).cpu()
+        card = mgnns_apply(pred.params, pred.batch_stats, pred.consts, one, cfg=cfg)[0].cpu()
         host = mgnns_apply(tree_to(pred.params, torch.device("cpu")),
+                           tree_to(pred.batch_stats, torch.device("cpu")),
                            tree_to(pred.consts, torch.device("cpu")),
-                           {k: v.cpu() for k, v in one.items()}, cfg=cfg)
+                           {k: v.cpu() for k, v in one.items()}, cfg=cfg)[0]
     diff = float((card - host).abs().max())
     tol = 1e-3 * max(1.0, float(host.abs().max()))  # two full-depth trunks, sums in another order
     log(f"phase 3: 1-record logits card vs CPU: max |diff| {diff} (tolerance {tol})")
@@ -326,6 +427,267 @@ def phase3(k1: dict) -> None:
     tpred.warm()
     serve(tpred, texts, "text-only")
     tpred.close()
+    return {"vocab": vocab, "texts": texts, "graph": graph, "cfg": cfg, "object_A": object_A,
+            "place_A": place_A, "r": r}
+
+
+# ------------------------------------------------------------------ phase 4
+
+N_TRAIN, N_VAL, TRAIN_BATCH, EPOCHS = 64, 32, 16, 2
+
+
+def _records(texts, n, offset, r) -> list[dict]:
+    names = list(LABELS)
+    return [{"id": f"t{offset + i}", "text": texts[(offset + i * 7) % len(texts)],
+             "image": f"t{offset + i}.jpg", "label": names[int(r.integers(0, len(names)))]}
+            for i in range(n)]
+
+
+def _timed_step(engine: Engine, batch: dict) -> dict:
+    """One train step split by phase on the host clock, synchronizing the
+    card after each: the same forward, backward and optimizer calls as
+    ``Engine.train_step``."""
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = engine._to_device(batch)
+    leaves = tree_leaves(engine.params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits, new_bs, aux = engine.apply_fn(tree_unflatten(engine.params, live), engine.batch_stats,
+                                          batch, train=True, generator=gen)
+    loss = cross_entropy(logits, batch["label"], batch["weight"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        engine.opt.apply(leaves, list(grads), engine.opt_state)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    engine.batch_stats = new_bs
+    times.update(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                 optimizer_ms=(t3 - t2) * 1e3)
+    return times
+
+
+def _loss_and_text_grads(engine: Engine, batch: dict, seed: int):
+    """Loss and the text GCN's gradients of one train forward/backward at the
+    engine's parameters, with dropout from ``seed``; nothing is updated."""
+    batch = engine._to_device(batch)
+    leaves = tree_leaves(engine.params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    tree = tree_unflatten(engine.params, live)
+    logits, _, aux = engine.apply_fn(tree, engine.batch_stats, batch, train=True,
+                                     generator=torch.Generator(device="cuda").manual_seed(seed))
+    loss = cross_entropy(logits, batch["label"], batch["weight"]) + engine.aux_loss_weight * aux
+    tg = tree["text_gcn"]
+    g = torch.autograd.grad(loss, [tg["node_embedding"], tg["edge_weight"]])
+    return float(loss.detach()), g
+
+
+def profile_train_step(engine: Engine, batch: dict) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    cm = confusion_init(engine.num_classes, "cuda")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.train_step(batch, cm)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.train_step(batch, cm)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"phase 4: one 16-record fusion train step: wall {wall_ms} ms (median of {walls}); "
+        f"device busy {busy_ms} ms over {sum(e.count for e in kernels)} kernel launches; device "
+        f"idle share {1 - busy_ms / wall_ms}; {card_line()}")
+    for e in prof.key_averages():
+        if e.key.startswith(("mgnns.", "engine.")) and e.device_type != torch.autograd.DeviceType.CUDA:
+            log(f"  range {e.key}: kernel ms {e.device_time_total / 1e3}, "
+                f"host ms (profiled) {e.cpu_time_total / 1e3}")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+        log(f"  kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5} {e.key[:100]}")
+    split = [_timed_step(engine, batch) for _ in range(3)]
+    log(f"phase 4: train step by phase, card synchronized after each (3 steps): "
+        f"{split}; {card_line()}")
+
+
+def phase4(setup: dict, k1: dict, k2: dict) -> None:
+    cfg = setup["cfg"]
+    vocab, graph, texts, r = setup["vocab"], setup["graph"], setup["texts"], np.random.default_rng(4)
+    params, stats, consts = mgnns_init(
+        cfg, num_edges=graph.num_edges,
+        label_embedding=r.standard_normal((7, 300)).astype(np.float32),
+        object_A=setup["object_A"], place_A=setup["place_A"],
+        object_inp=r.standard_normal((80, 300)).astype(np.float32),
+        place_inp=r.standard_normal((365, 300)).astype(np.float32), seed=1, device="cuda")
+    workdir = tempfile.mkdtemp(prefix="mgnns_train_")
+    with open(os.path.join(workdir, "label.json"), "w") as f:
+        json.dump(LABELS, f)
+    data_cfg = DataConfig(data_root_path=workdir, image_backend="synthetic")
+    graph_cfg = TextGraphConfig()
+    train_ds = TumblrDataset(data_cfg, graph_cfg, "train", vocab, graph, image_size=cfg.image_size,
+                             train_transforms=True, records=_records(texts, N_TRAIN, 0, r))
+    val_ds = TumblrDataset(data_cfg, graph_cfg, "val", vocab, graph, image_size=cfg.image_size,
+                           records=_records(texts, N_VAL, N_TRAIN, r))
+
+    def apply_fn(p, bs, batch, *, train, generator):
+        logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=cfg, train=train,
+                                          generator=generator)
+        return logits, new_bs, aux.get("head_diversity", 0.0)
+
+    steps = N_TRAIN // TRAIN_BATCH
+    engine = Engine(apply_fn, params, stats, num_classes=len(LABELS), optimizer_algo="adam",
+                    steps_per_epoch=steps, checkpoint_dir=os.path.join(workdir, "ckpt"),
+                    device="cuda")
+    saved: dict = {}
+    save = engine.save
+
+    def save_and_keep(metrics=None):
+        saved[engine.step] = [t.detach().cpu().clone() for t in tree_leaves(engine.params)]
+        save(metrics)
+
+    engine.save = save_and_keep
+    train_loader = DeviceLoader(train_ds, TRAIN_BATCH, shuffle=True, seed=0, device="cuda")
+    val_loader = DeviceLoader(val_ds, TRAIN_BATCH, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    edge_max.launches = edge_max.bwd_launches = 0
+    t0 = time.perf_counter()
+    result = engine.learning(
+        lambda: train_loader, lambda: val_loader, lambda: val_loader, max_epochs=EPOCHS,
+        result_paths={"experiment": os.path.join(workdir, "result.txt"),
+                      "pred": os.path.join(workdir, "pred.txt"), "label_names": list(LABELS)},
+        metrics_path=os.path.join(workdir, "metrics.jsonl"))
+    torch.cuda.synchronize()
+    launches, bwd_launches = edge_max.launches, edge_max.bwd_launches
+    learn_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_val = math.ceil(N_VAL / TRAIN_BATCH)
+    forwards = EPOCHS * steps + EPOCHS * n_val + n_val
+    train_steps = EPOCHS * steps
+    hist = result["history"]
+    losses = [h["train"]["loss"] for h in hist] + [h["val"]["loss"] for h in hist]
+    skipped = sum(h["train"]["skipped_steps"] for h in hist)
+    log(f"phase 4: learning() {EPOCHS} epochs of {steps} steps ({N_TRAIN} records, batch "
+        f"{TRAIN_BATCH}), val {N_VAL}, test pass: {learn_s} s; train loss per epoch "
+        f"{[h['train']['loss'] for h in hist]}, val loss {[h['val']['loss'] for h in hist]}, "
+        f"skipped steps {skipped}; train samples/s {[h['train']['samples_per_sec'] for h in hist]} "
+        f"(steady {[h['train'].get('steady_samples_per_sec') for h in hist]}), eval samples/s "
+        f"{[h['val'].get('steady_samples_per_sec') for h in hist]}; test {result['test']['accuracy']}; "
+        f"peak device memory {peak} bytes; {card_line()}")
+    log(f"phase 4: K1 launches {launches} for {forwards} forwards, K2 launches {bwd_launches} for "
+        f"{train_steps} train backward passes")
+    if not all(math.isfinite(v) for v in losses) or skipped:
+        raise SystemExit("phase 4: a non-finite loss or a skipped step")
+    if launches != forwards or bwd_launches != train_steps:
+        raise SystemExit("phase 4: kernel launch counts do not match the training run")
+    k1["launches"], k2["launches"] = launches, bwd_launches
+    for name in ("result.txt", "pred.txt", "metrics.jsonl"):
+        if not os.path.getsize(os.path.join(workdir, name)):
+            raise SystemExit(f"phase 4: {name} is empty")
+
+    # the best checkpoint, as learning() restored it before the test pass
+    best = engine.checkpointer.best_step()
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(saved[best], tree_leaves(engine.params))):
+        raise SystemExit("phase 4: the restored parameters differ from the saved ones")
+    log(f"phase 4: checkpoint of step {best} (best of {sorted(saved)}) restored equal to what "
+        f"was saved")
+
+    # one step with K1/K2 against the same step with their plain versions
+    batch = train_loader._assemble(np.arange(TRAIN_BATCH), None, random.Random(0))
+    loss_k, grads_k = _loss_and_text_grads(engine, batch, seed=5)
+    with mock.patch.object(edge_max, "_launch", edge_max.window_max_aggregate_plain), \
+            mock.patch.object(edge_max, "_launch_bwd", edge_max.window_max_aggregate_backward_plain):
+        loss_p, grads_p = _loss_and_text_grads(engine, batch, seed=5)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    gerr = [float((a - b).abs().max()) for a, b in zip(grads_k, grads_p)]
+    gtol = [1e-4 * max(1.0, float(b.abs().max())) for b in grads_p]
+    log(f"phase 4: 16-record train step with K1/K2 vs plain versions: loss {loss_k} vs {loss_p} "
+        f"(relative {rel}, tolerance 1e-5); text GCN gradient max |diff| node_embedding "
+        f"{gerr[0]} (tolerance {gtol[0]}), edge_weight {gerr[1]} (tolerance {gtol[1]})")
+    if rel > 1e-5 or gerr[0] > gtol[0] or gerr[1] > gtol[1]:
+        raise SystemExit("phase 4: the step with K1/K2 disagrees with the plain versions")
+
+    # a text-only SGD step on the card against the same step on the CPU
+    results = []
+    text_params = text_model_init(len(vocab), len(LABELS), graph.num_edges, seed=2, device="cpu")
+    for dev in ("cuda", "cpu"):
+        tp = tree_to(text_params, torch.device(dev))
+
+        def text_apply(p, bs, b, *, train, generator):
+            # dropout 0: a CUDA and a CPU generator draw different masks
+            return text_model_apply(p, b, ngram=graph_cfg.ngram, dropout_rate=0.0, train=train,
+                                    generator=generator), bs
+
+        teng = Engine(text_apply, tp, {}, num_classes=len(LABELS), optimizer_algo="sgd", lr=0.05,
+                      device=dev)
+        tb = {k: batch[k] for k in ("ids", "lens", "eids", "label", "weight")}
+        tl = float(teng.train_step(tb, confusion_init(len(LABELS), dev)))
+        results.append((tl, [t.cpu() for t in tree_leaves(teng.params)]))
+    (lc, pc), (lh, ph) = results
+    perr = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in zip(pc, ph))
+    log(f"phase 4: text-only train step card vs CPU: loss {lc} vs {lh}, updated parameters max "
+        f"|diff| / max(1, scale) {perr} (tolerance 1e-4)")
+    if abs(lc - lh) > 1e-4 * max(1.0, abs(lh)) or perr > 1e-4:
+        raise SystemExit("phase 4: the text-only step on the card disagrees with the CPU")
+
+    # 10 steps on one repeated batch lower its loss
+    cm = confusion_init(len(LABELS), "cuda")
+    step_ms, first = [], None
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(engine.train_step(batch, cm))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        first = loss if first is None else first
+    log(f"phase 4: 10 Adam steps (lr {engine.opt.schedule(engine.opt_state['count'])}, lrp 0.1) "
+        f"on one 16-record batch: loss {first} -> {loss}; step ms (host clock, loss read each "
+        f"step) {step_ms}, median after the first {statistics.median(step_ms[1:])}; {card_line()}")
+    if not loss < first:
+        raise SystemExit("phase 4: 10 steps on one batch did not lower its loss")
+
+    # what the nan-guard's per-step host read of isfinite(loss) costs: steps
+    # with and without it, in turns
+    guard_ms: dict = {True: [], False: []}
+    for guard in (True, False, False, True, True, False, False, True):
+        engine.nan_guard = guard
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.train_step(batch, cm)
+        torch.cuda.synchronize()
+        guard_ms[guard].append((time.perf_counter() - t0) * 1e3)
+    engine.nan_guard = True
+    log(f"phase 4: train step ms with the nan-guard {guard_ms[True]} (median "
+        f"{statistics.median(guard_ms[True])}), without {guard_ms[False]} (median "
+        f"{statistics.median(guard_ms[False])}); {card_line()}")
+    profile_train_step(engine, batch)
+
+    # peak memory of one forward/backward without remat and with per-block remat
+    peaks, block_losses = {}, {}
+    for policy in ("none", "block"):
+        bcfg = dataclasses.replace(cfg, remat_policy=policy)
+
+        def remat_apply(p, bs, b, *, train, generator, bcfg=bcfg):
+            return (*mgnns_apply(p, bs, consts, b, cfg=bcfg, train=train, generator=generator)[:2], 0.0)
+
+        reng = Engine(remat_apply, engine.params, engine.batch_stats, num_classes=len(LABELS),
+                      eval_only=True, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        block_losses[policy] = _loss_and_text_grads(reng, batch, seed=5)[0]
+        torch.cuda.synchronize()
+        peaks[policy] = torch.cuda.max_memory_allocated()
+    log(f"phase 4: one 16-record forward/backward, peak device memory without remat "
+        f"{peaks['none']} bytes, with remat_policy='block' {peaks['block']} bytes; losses "
+        f"{block_losses}; {card_line()}")
+    if abs(block_losses["block"] - block_losses["none"]) > 1e-5 * abs(block_losses["none"]):
+        raise SystemExit("phase 4: the block-remat step disagrees with the plain step")
 
 
 def main() -> int:
@@ -348,11 +710,13 @@ def main() -> int:
         log(lib.log.strip())
 
     k1 = phase2_k1()
-    phase3(k1)
+    k2 = phase2b_k2()
+    setup = phase3(k1)
+    phase4(setup, k1, k2)
 
     log(f"total {time.perf_counter() - t_start} s")
     log(card_line())
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,11 +1,11 @@
 """Typed configuration, copied from the JAX package's ``mgnns_tpu/config.py``.
 
 Field names and defaults are the JAX package's, so one configuration drives
-both.  The port serves in float32 only: ``compute_dtype="bfloat16"`` raises
-until the bf16 slice lands (``ROADMAP.md``, queue 1).  The training-only
-fields (``bn_mode``, ``remat_*``, ``unroll_trunks``, ``freeze_trunks``,
-``stem_s2d``) do not change an eval forward, in JAX either, and are accepted
-and ignored.
+both.  The port computes in float32 only: ``compute_dtype="bfloat16"`` raises
+until the bf16 slice lands (``ROADMAP.md``, queue 1).  ``bn_mode``,
+``remat_trunks``, ``remat_policy`` and ``freeze_trunks`` act in training as
+in the JAX package.  ``unroll_trunks`` and ``stem_s2d`` only change how XLA
+lowers the trunks there, not the maths, and are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ class ModelConfig:
     stack_num: int = 2              # cross-modal MHA stack depth
     n_head: int = 4                 # cross-modal MHA heads
     d_kv: int = 128                 # per-head dim in cross-modal MHA
-    is_regu: bool = False           # head-diversity regularizer (training only)
+    is_regu: bool = False           # head-diversity regularizer
     n_label_heads: int = 5          # heads in label-query image attention
     object_num_classes: int = 80    # COCO objects
     place_num_classes: int = 365    # Places365 scenes
@@ -60,12 +60,14 @@ class ModelConfig:
     edges_num: int = 1              # PMI edge-table size incl. reserved id 0
     trainable_edges_init_one: bool = True
     compute_dtype: str = "float32"
-    # training-only in the JAX package; no effect on an eval forward
-    bn_mode: str = "batch"
+    bn_mode: str = "batch"          # 'batch': train-mode BN; 'frozen': running stats
+    # 'none', 'trunk' (checkpoint each trunk) or 'block' (each bottleneck
+    # block, which wins over remat_trunks); remat_trunks aliases 'trunk'
     remat_trunks: bool = False
     remat_policy: str = "none"
+    freeze_trunks: bool = False     # no trunk gradients; the optimizer freezes them
+    # XLA lowering choices of the JAX package; no effect on the maths
     unroll_trunks: bool = False
-    freeze_trunks: bool = False
     stem_s2d: bool = False
 
     def __post_init__(self):

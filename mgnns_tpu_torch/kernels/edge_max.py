@@ -1,17 +1,24 @@
-"""K1: windowed edge-weighted max aggregation for the text GCN.
+"""K1 and K2: windowed edge-weighted max aggregation for the text GCN and
+its backward.
 
 ``out[b, j] = max_{o in [-g, g], 0 <= j+o < len_b} emb[b, j+o] * w[b, j, g+o]``
 for ``j < len_b``; padded rows are ``-inf``.
 
-The CUDA kernel (``csrc/edge_max.cu``) replaces the Pallas TPU kernel
-``mgnns_tpu/kernels/edge_max.py:_kernel`` of the JAX package.  Its bound is
-bytes: about ``2*B*L*D*4 + B*L*W*4`` (3.9 MB at B=16, L=100, D=300, g=4),
-a few microseconds of HBM time, so at serving sizes the launch dominates.
+The CUDA kernels (``csrc/edge_max.cu``) replace the Pallas TPU kernels of the
+JAX package's ``mgnns_tpu/kernels/edge_max.py``: K1 its ``_kernel``, K2 its
+``_bwd_kernel``.  Both are bound by bytes: K1 moves about
+``2*B*L*D*4 + B*L*W*4`` bytes (3.9 MB at B=16, L=100, D=300, g=4), K2 about
+``4*B*L*D*4 + 2*B*L*W*4`` (7.8 MB), a few microseconds of HBM time, so at
+the model's sizes the launch dominates.
 
-:func:`window_max_aggregate` launches the kernel for CUDA tensors and runs
-:func:`window_max_aggregate_plain` for CPU tensors; any other device, dtype
-or layout raises.  The backward (K2 in the JAX package) is not ported yet,
-so inputs that require grad raise.
+:func:`window_max_aggregate` is a :class:`WindowMaxAggregate` autograd
+function: for CUDA tensors its forward launches K1 and its backward K2, for
+CPU tensors they run :func:`window_max_aggregate_plain` and
+:func:`window_max_aggregate_backward_plain`; any other device, dtype or
+layout raises.  K2 follows ``jnp.maximum``'s VJP, which differs from
+autograd through ``torch.maximum`` for a NaN message (``==`` is false, so a
+NaN gets nothing); K2 is therefore held against the explicit plain backward,
+not against autograd of the plain forward.
 """
 
 from __future__ import annotations
@@ -21,9 +28,10 @@ import functools
 
 import torch
 
-# kernel launches since the counter was last reset; the chip smoke test
-# zeroes it before driving the serving path and reads it after
-launches = 0
+# kernel launches since each counter was last reset; the chip smoke test
+# zeroes them before driving a path and reads them after
+launches = 0       # K1
+bwd_launches = 0   # K2
 
 _MAX_NGRAM = 16  # kMaxWindow = 33 in csrc/edge_max.cu
 
@@ -50,6 +58,59 @@ def window_max_aggregate_plain(
     return m
 
 
+def window_max_aggregate_backward_plain(
+    emb: torch.Tensor,   # [B, L, D]
+    w: torch.Tensor,     # [B, L, W]
+    lens: torch.Tensor,  # [B]
+    g: torch.Tensor,     # [B, L, D] gradient of the output
+    ngram: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K2, line for line the JAX package's
+    ``kernels/edge_max.py:_bwd_kernel``: recompute the forward max chain,
+    then walk it backwards with ``jnp.maximum``'s VJP (a strict winner gets
+    the gradient, an exact tie splits it 0.5/0.5, the ``-inf`` start absorbs
+    nothing).  Shifted rows come from clamped indices and the validity mask,
+    as in the forward, and ``d_emb`` adds its terms with k descending.
+    Returns ``(d_emb [B, L, D], d_w [B, L, W])``; invalid slots get 0."""
+    B, L, D = emb.shape
+    pos = torch.arange(L, device=emb.device)
+    valid_j = pos[None, :] < lens[:, None]
+    neg = torch.tensor(float("-inf"), dtype=emb.dtype, device=emb.device)
+    offsets = list(range(-ngram, ngram + 1))
+
+    accs = [torch.full((B, L, D), float("-inf"), dtype=emb.dtype, device=emb.device)]
+    msgs, valids, srcs = [], [], []
+    for k, o in enumerate(offsets):
+        src = emb[:, torch.clamp(pos + o, 0, L - 1), :]
+        valid = (pos + o >= 0) & (pos + o < lens[:, None]) & valid_j
+        msg = torch.where(valid[:, :, None], src * w[:, :, k][:, :, None], neg)
+        accs.append(torch.maximum(accs[-1], msg))
+        msgs.append(msg)
+        valids.append(valid)
+        srcs.append(src)
+
+    g_acc = g
+    d_emb = torch.zeros_like(emb)
+    d_w = torch.zeros_like(w)
+    zero = torch.zeros((), dtype=emb.dtype, device=emb.device)
+    for k in range(len(offsets) - 1, -1, -1):
+        prev, msg, out = accs[k], msgs[k], accs[k + 1]
+        msg_hits = (msg == out).to(emb.dtype)
+        prev_hits = (prev == out).to(emb.dtype)
+        d_msg = g_acc * msg_hits / (1.0 + prev_hits)
+        g_acc = g_acc * prev_hits / (1.0 + msg_hits)
+        valid = valids[k]
+        d_msg = torch.where(valid[:, :, None], d_msg, zero)
+        d_w[:, :, k] = torch.where(valid, (d_msg * srcs[k]).sum(dim=2), zero)
+        d_src = d_msg * w[:, :, k][:, :, None]
+        # the inverse shift: source row s takes d_src of the row j = s - o
+        o = offsets[k]
+        j_pos = torch.clamp(pos - o, 0, L - 1)
+        from_j = (pos - o >= 0) & (pos - o < L) & valid[:, j_pos]
+        d_emb = d_emb + torch.where(from_j[:, :, None], d_src[:, j_pos, :], zero)
+    return d_emb, d_w
+
+
 def _check(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor, ngram: int) -> None:
     if emb.dim() != 3 or w.dim() != 3 or lens.dim() != 1:
         raise ValueError(f"expected emb [B, L, D], w [B, L, W], lens [B]; got "
@@ -67,16 +128,18 @@ def _check(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor, ngram: int) -
     if not (emb.device == w.device == lens.device):
         raise ValueError(f"edge_max inputs on different devices: "
                          f"{emb.device}, {w.device}, {lens.device}")
-    if emb.requires_grad or w.requires_grad:
-        raise NotImplementedError(
-            "edge_max has no backward yet: K2 (mgnns_tpu/kernels/edge_max.py:"
-            "_bwd_kernel) is queued for the training slice")
+    if emb.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"edge_max runs on cuda or cpu tensors, got {emb.device}")
+    if emb.device.type == "cuda" and not 0 <= ngram <= _MAX_NGRAM:
+        raise ValueError(f"the CUDA edge_max kernels take 0 <= ngram <= {_MAX_NGRAM}, got {ngram}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _launch(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor, ngram: int) -> torch.Tensor:
     global launches
-    if not 0 <= ngram <= _MAX_NGRAM:
-        raise ValueError(f"the CUDA edge_max kernel takes 0 <= ngram <= {_MAX_NGRAM}, got {ngram}")
     out = torch.empty_like(emb)
     B, L, D = emb.shape
     if out.numel() == 0:
@@ -84,12 +147,28 @@ def _launch(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor, ngram: int) 
     vec = 4 if D % 4 == 0 and emb.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
     err = _library().mgnns_edge_max_forward(
         emb.data_ptr(), w.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, L, D, ngram, vec, emb.device.index,
-        torch.cuda.current_stream(emb.device).cuda_stream)
+        B, L, D, ngram, vec, emb.device.index, _stream(emb))
     if err != 0:
         raise RuntimeError(f"edge_max kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def _launch_bwd(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor, g: torch.Tensor,
+                ngram: int) -> tuple[torch.Tensor, torch.Tensor]:
+    global bwd_launches
+    d_emb = torch.empty_like(emb)
+    d_w = torch.empty_like(w)
+    B, L, D = emb.shape
+    if B == 0 or L == 0:
+        return d_emb, d_w
+    err = _library().mgnns_edge_max_backward(
+        emb.data_ptr(), w.data_ptr(), g.data_ptr(), lens.data_ptr(),
+        d_emb.data_ptr(), d_w.data_ptr(), B, L, D, ngram, emb.device.index, _stream(emb))
+    if err != 0:
+        raise RuntimeError(f"edge_max backward kernel launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return d_emb, d_w
 
 
 @functools.cache
@@ -97,20 +176,56 @@ def _library() -> ctypes.CDLL:
     from mgnns_tpu_torch.kernels import build
 
     lib = build.load("edge_max")
-    fn = lib.mgnns_edge_max_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fwd = lib.mgnns_edge_max_forward
+    fwd.restype = ctypes.c_int
+    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    bwd = lib.mgnns_edge_max_backward
+    bwd.restype = ctypes.c_int
+    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return lib
+
+
+def _forward(emb, w, lens, ngram):
+    """K1 for CUDA tensors, the plain version for CPU tensors."""
+    if emb.device.type == "cuda":
+        return _launch(emb, w, lens, ngram)
+    return window_max_aggregate_plain(emb, w, lens, ngram)
+
+
+def _backward(emb, w, lens, g, ngram):
+    """K2 for CUDA tensors, the plain backward for CPU tensors."""
+    if g.dtype != torch.float32 or g.shape != emb.shape or g.device != emb.device:
+        raise ValueError(f"edge_max backward takes a float32 gradient of shape "
+                         f"{tuple(emb.shape)} on {emb.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    g = g.contiguous()  # the scatter-max backward hands over a strided view
+    if emb.device.type == "cuda":
+        return _launch_bwd(emb, w, lens, g, ngram)
+    return window_max_aggregate_backward_plain(emb, w, lens, g, ngram)
+
+
+class WindowMaxAggregate(torch.autograd.Function):
+    """K1 forward and K2 backward; saves ``(emb, w, lens)``, the JAX custom
+    VJP's residuals."""
+
+    @staticmethod
+    def forward(ctx, emb, w, lens, ngram):
+        ctx.ngram = ngram
+        ctx.save_for_backward(emb, w, lens)
+        return _forward(emb, w, lens, ngram)
+
+    @staticmethod
+    def backward(ctx, g):
+        emb, w, lens = ctx.saved_tensors
+        d_emb, d_w = _backward(emb, w, lens, g, ctx.ngram)
+        return d_emb, d_w, None, None
 
 
 def window_max_aggregate(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor,
                          ngram: int) -> torch.Tensor:
-    """K1 on the device the inputs lie on: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors.  emb f32 [B, L, D], w f32 [B, L, 2g+1],
-    lens int32 [B] with values in [0, L], all contiguous."""
+    """K1 (and, under autograd, K2) on the device the inputs lie on: the CUDA
+    kernels for CUDA tensors, the plain versions for CPU tensors.  emb f32
+    [B, L, D], w f32 [B, L, 2g+1], lens int32 [B] with values in [0, L], all
+    contiguous."""
     _check(emb, w, lens, ngram)
-    if emb.device.type == "cuda":
-        return _launch(emb, w, lens, ngram)
-    if emb.device.type == "cpu":
-        return window_max_aggregate_plain(emb, w, lens, ngram)
-    raise ValueError(f"edge_max runs on cuda or cpu tensors, got {emb.device}")
+    return WindowMaxAggregate.apply(emb, w, lens, ngram)

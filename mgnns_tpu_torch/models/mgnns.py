@@ -1,5 +1,4 @@
-"""The MGNNS fusion model (eval forward): three channels + cross-modal
-attention fusion.
+"""The MGNNS fusion model: three channels + cross-modal attention fusion.
 
 Port of the JAX package's ``mgnns_tpu/models/mgnns.py`` (reference
 ``models/Multi_GCN_Multihead_att.py``, forward ``:431-567``):
@@ -16,10 +15,12 @@ fusion         — four stacked 1-query cross-attention directions, concat
 
 Both trunks see the same image.  ``consts`` holds the label-embedding query
 and the object/place GloVe inputs (the JAX package passes the latter two in
-the batch).  The forward's five stages are named ``torch.profiler`` ranges
-(``mgnns.text_gcn``, ``.lstm``, ``.object_channel``, ``.place_channel``,
-``.fusion``) for the per-stage breakdown; without a profiler each is one
-host call per forward.
+the batch).  The trunks' running statistics are the separate
+``batch_stats`` tree, which the apply returns updated in train mode
+(:mod:`mgnns_tpu_torch.nn.resnet`).  The forward's five stages are named
+``torch.profiler`` ranges (``mgnns.text_gcn``, ``.lstm``,
+``.object_channel``, ``.place_channel``, ``.fusion``) for the per-stage
+breakdown; without a profiler each is one host call per forward.
 """
 
 from __future__ import annotations
@@ -27,11 +28,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from mgnns_tpu_torch.config import ModelConfig
 from mgnns_tpu_torch.graphs.cooccur import gen_adj
 from mgnns_tpu_torch.nn import attention, image_gcn, lstm, resnet, text_gcn
-from mgnns_tpu_torch.nn.core import as_param, embedding, embedding_init, leaky_relu, linear, linear_init
+from mgnns_tpu_torch.nn.core import (
+    RngStream, as_param, dropout, embedding, embedding_init, leaky_relu, linear, linear_init,
+)
 from mgnns_tpu_torch.utils import resolve_device
 
 # ImageNet statistics (reference Multi_GCN_Multihead_att.py:350-351)
@@ -60,9 +64,10 @@ def mgnns_init(
     place_inp: np.ndarray,
     seed: int = 0,
     device="cuda",
-) -> tuple[dict, dict]:
-    """Build (params, consts) on ``device`` from a ``torch.Generator``
-    seeded with ``seed``; the shapes are the JAX package's ``mgnns_init``.
+) -> tuple[dict, dict, dict]:
+    """Build (params, batch_stats, consts) on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``; the shapes are the JAX
+    package's ``mgnns_init``.
 
     Args:
       num_edges: PMI edge-table size (``PmiGraph.num_edges``).
@@ -72,12 +77,15 @@ def mgnns_init(
     """
     g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     d = cfg.bi_hidden_size
+    s: dict = {}
     p: dict = {
         "text_gcn": text_gcn.text_gcn_init(g, cfg.vocab_size, cfg.emb_size, num_edges),
         "embedding": embedding_init(g, cfg.vocab_size, cfg.emb_size),
         "lstm": lstm.lstm_init(g, cfg.emb_size, cfg.hidden_size, cfg.num_layers, cfg.bidirectional),
-        "object_trunk": resnet.resnet_init(g, depth=101),
-        "place_trunk": resnet.resnet_init(g, depth=50),
+    }
+    p["object_trunk"], s["object_trunk"] = resnet.resnet_init(g, depth=101)
+    p["place_trunk"], s["place_trunk"] = resnet.resnet_init(g, depth=50)
+    p.update({
         "liner_img_object": linear_init(g, 2048, d),
         "liner_img_place": linear_init(g, 2048, d),
         # gc1/gc2 shared by both image channels (reference :304-305)
@@ -89,7 +97,7 @@ def mgnns_init(
         "object_x_linear": linear_init(g, cfg.num_labels * 100, 300),
         "place_linear_5": linear_init(g, 300, 100),
         "place_x_linear": linear_init(g, cfg.num_labels * 100, 300),
-    }
+    })
     for name in ("img_object_text_mha", "img_place_text_mha",
                  "text_img_object_mha", "text_img_place_mha"):
         p[name] = [attention.my_mha_init(g, cfg.n_head, d, cfg.d_kv) for _ in range(cfg.stack_num)]
@@ -100,67 +108,118 @@ def mgnns_init(
     consts = {"label_query": as_param(label_embedding, g),
               "object_inp": as_param(object_inp, g),
               "place_inp": as_param(place_inp, g)}
-    return p, consts
+    return p, s, consts
 
 
-def _image_channel(params: dict, consts: dict, image: torch.Tensor, *, side: str,
-                   cfg: ModelConfig):
+def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.Tensor, *,
+                   side: str, cfg: ModelConfig, train: bool, rngs: RngStream):
     """One image channel (reference ``:450-479`` object / ``:482-506``
-    place).  Returns (memory_bank [B, h*w, d], channel_vec [B, 300])."""
-    feats = resnet.resnet_apply(params[f"{side}_trunk"], image)   # [B, h, w, 2048]
+    place).  Returns (memory_bank [B, h*w, d], channel_vec [B, 300],
+    new trunk statistics)."""
+    trunk_p, trunk_s = params[f"{side}_trunk"], batch_stats[f"{side}_trunk"]
+    # bn_mode 'batch' normalizes by batch statistics and moves the running
+    # ones in train mode; 'frozen' and frozen trunks use the running ones
+    bn_train = train and cfg.bn_mode == "batch" and not cfg.freeze_trunks
+    block_remat = cfg.remat_policy == "block"
+
+    def trunk_fn(img):
+        return resnet.resnet_apply(trunk_p, trunk_s, img, train=bn_train, block_remat=block_remat)
+
+    if cfg.freeze_trunks:
+        # feature extraction: no trunk backward and the old statistics, as
+        # the JAX package's stop_gradient (the optimizer freezes the trunks)
+        with torch.no_grad():
+            feats, _ = trunk_fn(image)
+        new_stats = trunk_s
+    elif ((cfg.remat_trunks or cfg.remat_policy == "trunk") and not block_remat
+          and torch.is_grad_enabled()):
+        # one checkpoint around the whole trunk; 'block' wins when both are asked
+        feats, new_stats = checkpoint(trunk_fn, image, use_reentrant=False)
+    else:
+        feats, new_stats = trunk_fn(image)                          # [B, h, w, 2048]
     B, H, W, C = feats.shape
     memory_bank = linear(params[f"liner_img_{side}"], feats.reshape(B, H * W, C))
     pooled = feats.amax(dim=(1, 2))                                 # [B, 2048]
 
-    adj = gen_adj(params[f"{side}_A"])
+    adj = gen_adj(params[f"{side}_A"].detach())                     # the reference detaches
     x = image_gcn.graph_conv_apply(params["gc1"], consts[f"{side}_inp"], adj)
     x = leaky_relu(x)
     x = image_gcn.graph_conv_apply(params["gc2"], x, adj)          # [C_cls, 2048]
     x = pooled @ x.T                                                # [B, C_cls]
 
     att = attention.label_attention_apply(
-        params[f"{side}_attention"], consts["label_query"], x, x,
-        n_heads=cfg.n_label_heads)                                  # [B, num_labels, 300]
+        params[f"{side}_attention"], consts["label_query"], x, x, n_heads=cfg.n_label_heads,
+        dropout_rate=cfg.dropout, train=train,
+        generator=rngs.next(f"{side}_label_attn"))                  # [B, num_labels, 300]
     att = linear(params[f"{side}_linear_5"], att).reshape(B, -1)    # [B, num_labels*100]
-    return memory_bank, linear(params[f"{side}_x_linear"], att)     # [B, 300]
+    return memory_bank, linear(params[f"{side}_x_linear"], att), new_stats
 
 
-def mgnns_apply(params: dict, consts: dict, batch: dict, *, cfg: ModelConfig) -> torch.Tensor:
-    """Eval forward (training is queued in ROADMAP.md, queue 1, item 2).
+def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
+                cfg: ModelConfig, train: bool = False,
+                generator: torch.Generator | None = None) -> tuple[torch.Tensor, dict, dict]:
+    """Forward pass (``mgnns_tpu/models/mgnns.py:277-380``).
 
     Args:
       batch: dict with ``ids`` [B, L] token ids (PAD=0, suffix padding),
         ``lens`` [B] int32, ``mask`` [B, L] float (1 = real token), ``eids``
         [B, L, 2*ngram+1] window edge ids, ``image`` [B, H, W, 3] uint8
         pixels or normalized floats (fed to both trunks).
+      train: dropout from ``generator`` at every site, and train-mode
+        BatchNorm under ``cfg.bn_mode == "batch"``.
     Returns:
-      logits [B, num_labels].
+      (logits [B, num_labels], new_batch_stats, aux); ``aux`` holds
+      ``head_diversity`` (the image->text stacks' mean) when ``cfg.is_regu``.
     """
+    rngs = RngStream(generator)
+    new_stats: dict = {}
+    aux: dict = {}
     with record_function("mgnns.text_gcn"):
         text_feature = text_gcn.text_gcn_apply(
             params["text_gcn"], batch["ids"], batch["lens"], batch["eids"],
-            ngram=(batch["eids"].shape[-1] - 1) // 2)              # [B, 300]
+            ngram=(batch["eids"].shape[-1] - 1) // 2, dropout_rate=cfg.text_dropout,
+            train=train, generator=rngs.next("text_gcn"))          # [B, 300]
     with record_function("mgnns.lstm"):
         emb = embedding(params["embedding"]["table"], batch["ids"])
-        text_memory_bank, _ = lstm.lstm_apply(params["lstm"], emb, batch["lens"])  # [B, L, 300]
+        text_memory_bank, _ = lstm.lstm_apply(
+            params["lstm"], emb, batch["lens"], dropout_rate=cfg.dropout, train=train,
+            generator=rngs.next("lstm"))                            # [B, L, 300]
 
     image = normalize_image_batch(batch["image"])
     with record_function("mgnns.object_channel"):
-        obj_bank, obj_vec = _image_channel(params, consts, image, side="object", cfg=cfg)
+        obj_bank, obj_vec, new_stats["object_trunk"] = _image_channel(
+            params, batch_stats, consts, image, side="object", cfg=cfg, train=train, rngs=rngs)
     with record_function("mgnns.place_channel"):
-        plc_bank, plc_vec = _image_channel(params, consts, image, side="place", cfg=cfg)
+        plc_bank, plc_vec, new_stats["place_trunk"] = _image_channel(
+            params, batch_stats, consts, image, side="place", cfg=cfg, train=train, rngs=rngs)
 
-    def run_stack(name, q, kv, mask):
-        for blk in params[name]:
-            q, _ = attention.my_mha_apply(blk, q, kv, kv, mask, n_head=cfg.n_head, d_kv=cfg.d_kv)
+    head_diffs: list = []
+
+    def run_stack(name, q, kv, mask, tag, is_regu=False):
+        for i, blk in enumerate(params[name]):
+            res = attention.my_mha_apply(blk, q, kv, kv, mask, n_head=cfg.n_head, d_kv=cfg.d_kv,
+                                         dropout_rate=cfg.dropout, train=train,
+                                         generator=rngs.next(f"{tag}{i}"), is_regu=is_regu)
+            q = res[0]
+            if is_regu:
+                head_diffs.append(res[2])
         return q
 
+    # the image->text stacks carry the head-diversity regularizer when
+    # cfg.is_regu (reference :198-199,:225-226); the text->image ones never do
     mask = batch["mask"]
     with record_function("mgnns.fusion"):
-        multi = torch.cat([
-            run_stack("text_img_object_mha", text_feature, obj_bank, None),
-            run_stack("text_img_place_mha", text_feature, plc_bank, None),
-            run_stack("img_object_text_mha", obj_vec, text_memory_bank, mask),
-            run_stack("img_place_text_mha", plc_vec, text_memory_bank, mask),
-        ], dim=1)                                                   # [B, 1200]
-        return linear(params["multi_linear_2"], linear(params["multi_linear_1"], multi))
+        img_object_text = run_stack("img_object_text_mha", obj_vec, text_memory_bank, mask,
+                                    "iot", cfg.is_regu)
+        img_place_text = run_stack("img_place_text_mha", plc_vec, text_memory_bank, mask,
+                                   "ipt", cfg.is_regu)
+        text_img_object = run_stack("text_img_object_mha", text_feature, obj_bank, None, "tio")
+        text_img_place = run_stack("text_img_place_mha", text_feature, plc_bank, None, "tip")
+        if head_diffs:
+            aux["head_diversity"] = torch.stack(head_diffs).mean()
+        multi = torch.cat([text_img_object, text_img_place, img_object_text, img_place_text],
+                          dim=1)                                    # [B, 1200]
+        multi = linear(params["multi_linear_1"], multi)
+        multi = dropout(multi, cfg.dropout, rngs.next("classifier"), train)
+        logits = linear(params["multi_linear_2"], multi)
+    return logits, new_stats, aux

@@ -1,4 +1,4 @@
-"""Text-only classification model: text GCN -> linear head (eval forward).
+"""Text-only classification model: text GCN -> linear head.
 
 Port of the JAX package's ``mgnns_tpu/models/text_only.py`` (the reference's
 ``Text_GCN.Model`` with its classification Linear attached,
@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from mgnns_tpu_torch.nn import text_gcn
-from mgnns_tpu_torch.nn.core import linear, linear_init
+from mgnns_tpu_torch.nn.core import RngStream, linear, linear_init
 from mgnns_tpu_torch.utils import resolve_device
 
 
@@ -32,9 +32,13 @@ def text_model_init(
     }
 
 
-def text_model_apply(params: dict, batch: dict, *, ngram: int) -> torch.Tensor:
+def text_model_apply(params: dict, batch: dict, *, ngram: int, dropout_rate: float = 0.5,
+                     train: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
     """batch: ``ids`` [B, L], ``lens`` [B] int32, ``eids`` [B, L, W].
-    Returns logits [B, num_labels]."""
+    Returns logits [B, num_labels].  In train mode the text GCN's readout
+    takes dropout from ``generator``."""
+    rngs = RngStream(generator)
     h = text_gcn.text_gcn_apply(params["text_gcn"], batch["ids"], batch["lens"],
-                                batch["eids"], ngram=ngram)
+                                batch["eids"], ngram=ngram, dropout_rate=dropout_rate,
+                                train=train, generator=rngs.next("text_gcn"))
     return linear(params["head"], h)

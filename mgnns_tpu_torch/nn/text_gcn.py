@@ -1,9 +1,9 @@
-"""Text-level GCN with edge-weighted max aggregation (eval forward).
+"""Text-level GCN with edge-weighted max aggregation.
 
 Port of the JAX package's ``mgnns_tpu/nn/text_gcn.py``: per position, the max
-over the window's edge-weighted messages (kernel K1,
+over the window's edge-weighted messages (kernel K1, with K2 as its backward,
 :mod:`mgnns_tpu_torch.kernels.edge_max`), then per unique word the max over
-its positions, summed over words, then ReLU (reference
+its positions, summed over words, then dropout and ReLU (reference
 ``models/Text_GCN.py:242-275``).
 """
 
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from mgnns_tpu_torch.kernels import edge_max
-from mgnns_tpu_torch.nn.core import embedding, normal
+from mgnns_tpu_torch.nn.core import dropout, embedding, normal
 
 
 def text_gcn_init(g: torch.Generator, vocab_size: int, hidden_size: int, num_edges: int) -> dict:
@@ -31,7 +31,9 @@ def unique_word_readout(
 
     Each position's aggregate is scatter-maxed into the slot of its word's
     first occurrence, found with a stable sort; the readout sums each slot
-    once.  Slots that are not a first occurrence stay -inf and drop out."""
+    once.  Slots that are not a first occurrence stay -inf and drop out.
+    The scatter-max's backward splits the gradient evenly among the tied
+    positions of a word, as the JAX package's scatter-max VJP does."""
     B, L, D = per_pos_max.shape
     pos = torch.arange(L, device=ids.device)
     valid = pos[None, :] < lens[:, None]
@@ -46,8 +48,8 @@ def unique_word_readout(
     canon = torch.where(valid, canon, L)                # dummy slot for padding
     out = torch.full((B, L + 1, D), float("-inf"), dtype=per_pos_max.dtype,
                      device=per_pos_max.device)
-    out.scatter_reduce_(1, canon[:, :, None].expand(B, L, D), per_pos_max,
-                        reduce="amax", include_self=True)
+    out = out.scatter_reduce(1, canon[:, :, None].expand(B, L, D), per_pos_max,
+                             reduce="amax", include_self=True)
     out = out[:, :L, :]
     return torch.where(torch.isfinite(out), out, 0.0).sum(dim=1)
 
@@ -59,9 +61,13 @@ def text_gcn_apply(
     eids: torch.Tensor,   # [B, L, W] window edge ids from the host pipeline
     *,
     ngram: int,
+    dropout_rate: float = 0.5,
+    train: bool = False,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """Document representations [B, D]."""
     emb = embedding(params["node_embedding"], ids)    # [B, L, D]
     w = params["edge_weight"][:, 0][eids]             # [B, L, W]
     m = edge_max.window_max_aggregate(emb, w, lens, ngram)
-    return torch.relu(unique_word_readout(m, ids, lens))
+    h = dropout(unique_word_readout(m, ids, lens), dropout_rate, generator, train)
+    return torch.relu(h)

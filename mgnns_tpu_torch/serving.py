@@ -8,9 +8,10 @@ bucket that fits, and runs one batched eval forward on ``device``.
 
 Usage::
 
-    params, consts = convert.from_jax_params(params_np, stats_np, consts_np)
+    params, stats, consts = convert.from_jax_params(params_np, stats_np, consts_np)
     pred = Predictor(vocab=vocab, graph=graph, graph_cfg=TextGraphConfig(),
-                     label_map=labels, params=params, consts=consts, cfg=cfg)
+                     label_map=labels, params=params, batch_stats=stats,
+                     consts=consts, cfg=cfg)
     out = pred.predict([{"text": "what a wonderful day", "image": "a.jpg"}])
     out[0] -> {"label": "happy", "label_id": 4, "probs": {...}}
 """
@@ -61,6 +62,7 @@ class Predictor:
         graph_cfg: TextGraphConfig,
         label_map: dict[str, int],
         params: dict,
+        batch_stats: dict | None = None,
         consts: dict | None = None,
         cfg: ModelConfig | None = None,
         image_backend: str = "pil",
@@ -74,10 +76,11 @@ class Predictor:
     ):
         """``params``: the text-only model's (``text_only=True``) or the
         fusion model's, e.g. from :mod:`mgnns_tpu_torch.convert`; the fusion
-        model also takes its ``consts`` and ``cfg``.  Everything is moved to
-        ``device``, which raises when it is CUDA and no card is present."""
-        if not text_only and (consts is None or cfg is None):
-            raise ValueError("the fusion model needs consts and cfg")
+        model also takes its ``batch_stats``, ``consts`` and ``cfg``.
+        Everything is moved to ``device``, which raises when it is CUDA and
+        no card is present."""
+        if not text_only and (batch_stats is None or consts is None or cfg is None):
+            raise ValueError("the fusion model needs batch_stats, consts and cfg")
         self.device = resolve_device(device)
         self.vocab = vocab
         self.graph = graph
@@ -85,6 +88,7 @@ class Predictor:
         self.w2i = make_word_to_id(vocab)
         self.idx2label = {v: k for k, v in label_map.items()}
         self.params = tree_to(params, self.device)
+        self.batch_stats = tree_to(batch_stats, self.device) if batch_stats is not None else None
         self.consts = tree_to(consts, self.device) if consts is not None else None
         self.cfg = cfg
         self.image_size = cfg.image_size if cfg is not None else 0
@@ -175,7 +179,8 @@ class Predictor:
             if self.text_only:
                 logits = text_model_apply(self.params, batch, ngram=self.graph_cfg.ngram)
             else:
-                logits = mgnns_apply(self.params, self.consts, batch, cfg=self.cfg)
+                logits = mgnns_apply(self.params, self.batch_stats, self.consts, batch,
+                                     cfg=self.cfg)[0]
             probs = torch.softmax(logits.float(), dim=-1)
         self.last_timings["forward_dispatch_ms"] = (time.perf_counter() - t0) * 1e3
         return probs

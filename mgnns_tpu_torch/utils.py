@@ -28,3 +28,16 @@ def tree_map(fn, tree):
 def tree_to(tree, device: torch.device):
     """Move every tensor leaf of a parameter tree to ``device``."""
     return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in :func:`tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` whose leaves are ``leaves``, in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)

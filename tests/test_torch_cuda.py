@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain version, and a
-forward on the card against the same forward on the CPU.
+"""The port on the card: each CUDA kernel against its plain version, a
+forward and a train step on the card against the same on the CPU, and the
+kernels' launch counts across a train epoch.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 those are absent: ``python -m pytest --noconftest tests/test_torch_cuda.py``
@@ -12,6 +13,7 @@ import torch
 
 from mgnns_tpu_torch.kernels import edge_max
 from mgnns_tpu_torch.models.text_only import text_model_apply, text_model_init
+from mgnns_tpu_torch.utils import tree_to
 
 
 @pytest.fixture
@@ -60,3 +62,112 @@ def test_text_model_on_card_matches_cpu(cuda_device):
         want = text_model_apply(cpu_params, {k: torch.from_numpy(v) for k, v in batch.items()},
                                 ngram=ngram)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def _k2_inputs(shape, device, seed=0):
+    """K1's card inputs (lens 0, 1 and L, zero weights, an engineered tie,
+    a NaN) and a random upstream gradient."""
+    B, L, D, ngram = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    W = 2 * ngram + 1
+    emb = torch.randn(B, L, D, generator=g, device=device)
+    w = torch.randn(B, L, W, generator=g, device=device)
+    lens = torch.randint(0, L + 1, (B,), generator=g, device=device, dtype=torch.int32)
+    lens[0], lens[1], lens[-1] = 0, 1, L
+    w[:, ::3, 0] = 0.0
+    emb[:, 2, :] = emb[:, 0, :]              # row 1 sees rows 0 and 2 with equal weights
+    w[:, 1, ngram - 1] = w[:, 1, ngram + 1]
+    emb[-1, L // 2, D // 2] = float("nan")
+    up = torch.randn(B, L, D, generator=g, device=device)
+    return emb, w, lens, up
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 100, 300, 4), (3, 7, 5, 2)])
+def test_edge_max_backward_kernel_equals_plain(cuda_device, shape):
+    """K2 against its plain backward: d_emb exactly (the same float32 terms
+    added in the same order), d_w within 1e-5 of scale (its sum over D runs
+    in another order)."""
+    emb, w, lens, up = _k2_inputs(shape, cuda_device)
+    before = edge_max.bwd_launches
+    d_emb, d_w = edge_max._backward(emb, w, lens, up, shape[3])
+    torch.cuda.synchronize()
+    assert edge_max.bwd_launches == before + 1
+    want_e, want_w = edge_max.window_max_aggregate_backward_plain(emb, w, lens, up, shape[3])
+    torch.testing.assert_close(d_emb, want_e, rtol=0, atol=0, equal_nan=True)
+    scale = max(1.0, float(want_w.nan_to_num().abs().max()))
+    torch.testing.assert_close(d_w, want_w, rtol=1e-5, atol=1e-5 * scale, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_edge_max_backward_kernel_ties(cuda_device):
+    """The constant-input case of tests/test_kernels.py:78: every in-window
+    message ties, so the gradient splits 0.5/0.5 down the max chain; the
+    terms are exact in float32, so both gradients equal the plain backward
+    exactly, whatever the order of their sums."""
+    B, L, D, ngram = 2, 8, 4, 2
+    emb = torch.full((B, L, D), 0.5)
+    w = torch.ones(B, L, 2 * ngram + 1)
+    lens = torch.tensor([8, 5], dtype=torch.int32)
+    up = torch.arange(1, D + 1, dtype=torch.float32).expand(B, L, D).contiguous()
+    got = edge_max._backward(*(a.to(cuda_device) for a in (emb, w, lens, up)), ngram)
+    want = edge_max.window_max_aggregate_backward_plain(emb, w, lens, up, ngram)
+    assert len(torch.unique(want[1])) > 2  # fractional gradient mass
+    for gg, ww in zip(got, want):
+        torch.testing.assert_close(gg.cpu(), ww, rtol=0, atol=0)
+
+
+def _text_train_setup(device):
+    from mgnns_tpu_torch.engine.train import Engine
+
+    V, E, B, L, ngram = 50, 40, 8, 12, 2
+    # the same weights on every device: a CUDA and a CPU generator differ
+    params = tree_to(text_model_init(V, 7, E, seed=0, device="cpu"), torch.device(device))
+    r = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        lens = r.integers(1, L + 1, B).astype(np.int32)
+        ids = r.integers(1, V, (B, L)).astype(np.int32)
+        ids[np.arange(L)[None, :] >= lens[:, None]] = 0
+        batches.append({"ids": ids, "lens": lens,
+                        "eids": r.integers(0, E, (B, L, 2 * ngram + 1)).astype(np.int32),
+                        "label": r.integers(0, 7, B).astype(np.int32),
+                        "weight": np.ones(B, np.float32)})
+
+    def apply_fn(p, bs, batch, *, train, generator):
+        return text_model_apply(p, batch, ngram=ngram, dropout_rate=0.0, train=train,
+                                generator=generator), bs
+
+    engine = Engine(apply_fn, params, {}, num_classes=7, optimizer_algo="sgd", lr=0.1,
+                    device=device)
+    return engine, batches
+
+
+@pytest.mark.cuda
+def test_text_train_step_on_card_matches_cpu(cuda_device):
+    """One text-only Engine step with K1/K2 on the card against the same step
+    on the CPU (plain versions): loss and updated parameters within 1e-4 of
+    scale (float32 sums, and the embedding backward's atomics, in another
+    order)."""
+    from mgnns_tpu_torch.engine.metrics import confusion_init
+    from mgnns_tpu_torch.utils import tree_leaves
+
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        engine, batches = _text_train_setup(dev)
+        loss = engine.train_step(batches[0], confusion_init(7, dev))
+        results.append((float(loss), [t.cpu() for t in tree_leaves(engine.params)]))
+    (l_card, p_card), (l_cpu, p_cpu) = results
+    assert abs(l_card - l_cpu) <= 1e-4 * max(1.0, abs(l_cpu))
+    for a, b in zip(p_card, p_cpu):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.cuda
+def test_launch_counts_across_train_epoch(cuda_device):
+    """K1 launches once per forward and K2 once per backward in an epoch."""
+    engine, batches = _text_train_setup(cuda_device)
+    edge_max.launches = edge_max.bwd_launches = 0
+    out = engine.train_epoch(batches)
+    assert out["skipped_steps"] == 0
+    assert (edge_max.launches, edge_max.bwd_launches) == (len(batches), len(batches))

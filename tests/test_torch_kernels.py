@@ -77,7 +77,16 @@ def test_wrapper_rejects(bad):
 
 
 def test_wrapper_requires_grad_names_k2():
+    """Inputs that require grad take K2's path: on the CPU its plain
+    backward, with no kernel launched."""
     emb, w, lens = (torch.from_numpy(a) for a in _inputs(0))
-    with pytest.raises(NotImplementedError, match="K2"):
-        edge_max.window_max_aggregate(emb.requires_grad_(), w, lens, 2)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(emb.shape).astype(np.float32))
+    e, ww = emb.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (edge_max.launches, edge_max.bwd_launches)
+    out = edge_max.window_max_aggregate(e, ww, lens, 2)
+    out.backward(g)
+    assert (edge_max.launches, edge_max.bwd_launches) == before
+    want_e, want_w = edge_max.window_max_aggregate_backward_plain(emb, w, lens, g, 2)
+    torch.testing.assert_close(e.grad, want_e, rtol=0, atol=0)
+    torch.testing.assert_close(ww.grad, want_w, rtol=0, atol=0)
 

@@ -29,6 +29,7 @@ from mgnns_tpu_torch.graphs.pmi import PmiGraph
 from mgnns_tpu_torch.models.mgnns import mgnns_apply, mgnns_init
 from mgnns_tpu_torch.models.text_only import text_model_apply
 from mgnns_tpu_torch.serving import Predictor
+from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 
 CORPUS = ["the cat sat on the mat", "a dog met a cat", "the mat sat still",
           "dogs and cats and logs"]
@@ -66,13 +67,13 @@ def fusion():
     ids, lens, mask, eids = j_encode_texts(CORPUS, make_word_to_id(vocab), graph, gcfg)
     batch = {"ids": ids, "lens": lens, "mask": mask, "eids": eids,
              "image": r.standard_normal((len(CORPUS), 64, 64, 3)).astype(np.float32)}
-    params, consts = convert.from_jax_params(
+    params, stats, consts = convert.from_jax_params(
         _np(jparams), _np(jstate),
         dict(_np(jconsts), object_inp=object_inp, place_inp=place_inp), device=CPU)
     return dict(vocab=vocab, graph=graph, jcfg=jcfg, cfg=cfg, gcfg=gcfg,
                 jparams=jparams, jstate=jstate, jconsts=jconsts,
                 object_inp=object_inp, place_inp=place_inp,
-                params=params, consts=consts, batch=batch)
+                params=params, stats=stats, consts=consts, batch=batch)
 
 
 def _jax_logits(f, batch):
@@ -95,9 +96,9 @@ def test_fusion_logits_match_jax(fusion, image):
             0, 256, batch["image"].shape, dtype=np.uint8)
     want = _jax_logits(fusion, batch)
     with torch.inference_mode():
-        got = mgnns_apply(fusion["params"], fusion["consts"],
+        got = mgnns_apply(fusion["params"], fusion["stats"], fusion["consts"],
                           {k: torch.from_numpy(v) for k, v in batch.items()},
-                          cfg=fusion["cfg"]).numpy()
+                          cfg=fusion["cfg"])[0].numpy()
     assert got.shape == (len(CORPUS), 7) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=5e-3, rtol=1e-3)
 
@@ -115,12 +116,13 @@ def test_mgnns_init_shapes_match_jax(fusion):
     JAX package's init: same keys, shapes and dtypes."""
     f = fusion
     r = np.random.default_rng(2)
-    params, consts = mgnns_init(
+    params, stats, consts = mgnns_init(
         f["cfg"], num_edges=f["graph"].num_edges,
         label_embedding=r.standard_normal((7, 300)),
         object_A=np.asarray(f["jparams"]["object_A"]), place_A=np.asarray(f["jparams"]["place_A"]),
         object_inp=f["object_inp"], place_inp=f["place_inp"], seed=3, device=CPU)
     assert _shapes(params) == _shapes(f["params"])
+    assert _shapes(stats) == _shapes(f["stats"])
     assert _shapes(consts) == _shapes(f["consts"])
     assert (params["embedding"]["table"][0] == 0).all()
 
@@ -180,7 +182,8 @@ def test_predictor_matches_jax_predictor(fusion, text_model, text_only):
                            params=f["jparams"], batch_stats=f["jstate"],
                            image_size=64, **common)
         pred = Predictor(graph=_port_graph(f["graph"]), graph_cfg=TextGraphConfig(ngram=2, max_len=10),
-                         params=f["params"], consts=f["consts"], cfg=f["cfg"],
+                         params=f["params"], batch_stats=f["stats"], consts=f["consts"],
+                         cfg=f["cfg"],
                          device=CPU, **common)
     want = jpred.predict(RECORDS)
     got = pred.predict(RECORDS)

@@ -23,6 +23,7 @@ from mgnns_tpu.nn import text_gcn as jtext_gcn
 from mgnns_tpu_torch import convert
 from mgnns_tpu_torch.graphs.cooccur import gen_adj
 from mgnns_tpu_torch.nn import attention, core, image_gcn, lstm, resnet, text_gcn
+from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 
 ATOL = RTOL = 1e-5
 
@@ -94,8 +95,9 @@ def test_resnet_apply(depth):
     x = r.standard_normal((2, 64, 64, 3)).astype(np.float32)
     want, _ = jresnet.resnet_apply(jp, js, jnp.asarray(x), depth=depth)
     with torch.inference_mode():
-        got = resnet.resnet_apply(convert.resnet_from_jax(_np(jp), _np(js), device="cpu"),
-                                  torch.from_numpy(x))
+        got, _ = resnet.resnet_apply(convert.resnet_from_jax(_np(jp), device="cpu"),
+                                     convert.resnet_from_jax(_np(js), device="cpu"),
+                                     torch.from_numpy(x))
     assert got.shape == (2, 2, 2, 2048)
     want = np.asarray(want)
     _close(got, want, atol=1e-3 * np.abs(want).max(), rtol=0)
