@@ -10,11 +10,14 @@ Phases (any failure exits non-zero, and no result line is printed):
 0. the card: name and power limit, TF32 off for convolutions and matmuls
    (the port computes in full float32);
 1. build every CUDA kernel (K1, K2) from ``mgnns_tpu_torch/kernels/csrc``;
+   ptxas's registers, stack and spills of K2 at the model's window (g=4),
+   which must use no local memory;
 2. K1 against its plain PyTorch version on the card, at the model's shapes
    and a small odd one, exactly; kernel and plain times;
-2b. K2 against its plain backward the same way: ``d_emb`` exactly, ``d_w``
-   within 1e-5 of scale (its sum over D runs in another order), the
-   constant-input tie case exactly; kernel and plain times;
+2b. K2 against its plain backward the same way, and at g=0 and g=16:
+   ``d_emb`` exactly, ``d_w`` within 1e-5 of scale (its sum over D runs in
+   another order), the constant-input tie case exactly; kernel and plain
+   times;
 3. the serving path at the full width of the fusion model: a seeded
    synthetic corpus over a 20,153-word vocabulary, its PMI graph, 80/365-class
    label graphs, ``ModelConfig()`` weights from a seed, and a
@@ -42,6 +45,7 @@ import json
 import math
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -72,6 +76,7 @@ VOCAB_SIZE = 20153          # ModelConfig.vocab_size
 N_DOCS = 10_000
 REQUEST_SIZES = (1, 5, 16, 37)
 REPEATS = 3
+K2_PTXAS_NAME = "edge_max_bwd_kernelILi4E"   # the mangled name of K2's g=4 instantiation
 LABELS = {name: i for i, name in enumerate(
     ["angry", "bored", "calm", "fear", "happy", "love", "sad"])}
 
@@ -116,8 +121,9 @@ def k1_inputs(B, L, D, ngram, seed):
     lens = torch.randint(0, L + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
     lens[0], lens[1], lens[-1] = 0, 1, L
     w[:, ::3, 0] = 0.0
-    emb[:, 2, :] = emb[:, 0, :]          # row 1 sees rows 0 and 2 with equal weights
-    w[:, 1, ngram - 1] = w[:, 1, ngram + 1]
+    if ngram > 0:
+        emb[:, 2, :] = emb[:, 0, :]      # row 1 sees rows 0 and 2 with equal weights
+        w[:, 1, ngram - 1] = w[:, 1, ngram + 1]
     emb[-1, L // 2, D // 2] = float("nan")
     return emb, w, lens
 
@@ -158,14 +164,8 @@ def phase2_k1() -> dict:
     ms = cuda_ms(lambda: edge_max.window_max_aggregate(emb, w, lens, ngram), iters=200)
     plain_ms = cuda_ms(lambda: edge_max.window_max_aggregate_plain(emb, w, lens, ngram), iters=50)
     bound_ms, bound_by = k1_bound_ms(lens, L, D, ngram)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            edge_max.window_max_aggregate(emb, w, lens, ngram)
-        torch.cuda.synchronize()
-    k = [e for e in device_kernels(prof) if "edge_max" in e.key]
-    device_us = k[0].self_device_time_total / k[0].count if k else float("nan")
+    device_us = kernel_us(lambda: edge_max.window_max_aggregate(emb, w, lens, ngram),
+                          "edge_max_fwd")
     log(f"phase 2: K1 at B={B} L={L} D={D} g={ngram}: {ms * 1e3} us per call back to back "
         f"(CUDA events), {device_us} us of kernel time per launch (profiler), plain "
         f"{plain_ms * 1e3} us, bound {bound_ms * 1e3} us ({bound_by}); {card_line()}")
@@ -198,7 +198,9 @@ def k2_bound_ms(lens: torch.Tensor, L: int, D: int, ngram: int) -> tuple[float, 
 
 def phase2b_k2() -> dict:
     max_err = 0.0
-    for shape in ((16, 100, 300, 4), (3, 7, 5, 2)):
+    # the model's shape (g=4), a small odd one, and the smallest and largest
+    # windows the kernel instantiates
+    for shape in ((16, 100, 300, 4), (3, 7, 5, 2), (16, 100, 300, 0), (16, 100, 300, 16)):
         emb, w, lens = k1_inputs(*shape, seed=sum(shape) + 1)
         up = torch.randn(emb.shape, generator=torch.Generator(device="cuda").manual_seed(7),
                          device="cuda")
@@ -236,14 +238,7 @@ def phase2b_k2() -> dict:
     plain_ms = cuda_ms(lambda: edge_max.window_max_aggregate_backward_plain(emb, w, lens, up, ngram),
                        iters=20)
     bound_ms, bound_by = k2_bound_ms(lens, L, D, ngram)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            edge_max._backward(emb, w, lens, up, ngram)
-        torch.cuda.synchronize()
-    k = [e for e in device_kernels(prof) if "edge_max_bwd" in e.key]
-    device_us = k[0].self_device_time_total / k[0].count if k else float("nan")
+    device_us = kernel_us(lambda: edge_max._backward(emb, w, lens, up, ngram), "edge_max_bwd")
     log(f"phase 2b: K2 at B={B} L={L} D={D} g={ngram}: {ms * 1e3} us per call back to back "
         f"(CUDA events), {device_us} us of kernel time per launch (profiler), plain "
         f"{plain_ms * 1e3} us, bound {bound_ms * 1e3} us ({bound_by}); {card_line()}")
@@ -305,6 +300,42 @@ def serve(pred: Predictor, texts: list[str], label: str) -> dict:
     log(f"phase 3: {label} K1 launches {launches} for {forwards} forwards; "
         f"peak device memory {peak} bytes; last chunk stages {pred.last_timings}; {card_line()}")
     return {"launches": launches, "forwards": forwards}
+
+
+def kernel_us(fn, name: str) -> float:
+    """Device time a launch of the kernel whose name contains ``name``, by
+    the profiler over 50 calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+    k = [e for e in device_kernels(prof) if name in e.key]
+    return k[0].self_device_time_total / k[0].count if k else float("nan")
+
+
+def ptxas_report(nvcc_log: str, kernel: str) -> str:
+    """ptxas's lines (registers, stack, spills) for the kernel whose mangled
+    name contains ``kernel``, from the output of ``nvcc -Xptxas -v``."""
+    lines, keep = [], False
+    for line in nvcc_log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep:
+            lines.append(line.strip())
+    return "\n".join(lines)
+
+
+def local_memory_bytes(report: str) -> list[int]:
+    """Stack frame, spill store and spill load bytes of a ``ptxas_report``."""
+    m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                  report)
+    if m is None:
+        raise SystemExit(f"no stack/spill line in ptxas's report:\n{report}")
+    return [int(x) for x in m.groups()]
 
 
 def device_kernels(prof):
@@ -708,6 +739,14 @@ def main() -> int:
     log(f"phase 1: built {sorted(libs)} in {time.perf_counter() - t0} s")
     for lib in libs.values():
         log(lib.log.strip())
+    # K2's register rings must stay in registers at the model's window (g=4);
+    # the log is the one kept beside the library, built in this run or before
+    report = ptxas_report(libs["edge_max"].log, K2_PTXAS_NAME)
+    local = local_memory_bytes(report)
+    log(f"phase 1: ptxas, K2 at g=4: {' | '.join(report.splitlines())}")
+    if any(local):
+        raise SystemExit(f"phase 1: K2 at g=4 uses local memory (stack, spill stores, "
+                         f"spill loads: {local} bytes)")
 
     k1 = phase2_k1()
     k2 = phase2b_k2()

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/torch_ext/`` at the repository
 root, named by a hash of its source and flags so a changed source is rebuilt
-and an unchanged one is loaded as it is.  Nothing is compiled at import:
+and an unchanged one is loaded as it is, with nvcc's log kept beside it
+(``lib<name>-<hash>.log``).  Nothing is compiled at import:
 :func:`load` builds on first use, and :func:`build_all` starts one ``nvcc``
 per source at once.
 """
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
 @dataclasses.dataclass
 class Library:
     lib: ctypes.CDLL
-    log: str  # nvcc's output (ptxas register / spill report); "" when already built
+    log: str  # nvcc's output (ptxas register / spill report), kept beside the .so
 
 
 _loaded: dict[str, Library] = {}
@@ -62,7 +63,7 @@ def build_all(names=SOURCES) -> dict[str, Library]:
     procs = {}
     for name in todo:
         src, so = _target(name)
-        if os.path.exists(so):
+        if os.path.exists(so) and os.path.exists(_log_path(so)):
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         procs[name] = (subprocess.Popen(
@@ -77,12 +78,23 @@ def build_all(names=SOURCES) -> dict[str, Library]:
             if os.path.exists(tmp):
                 os.remove(tmp)
         else:
-            os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+            with open(f"{tmp}.log", "w") as f:
+                f.write(logs[name])
+            # atomic, the log first: a concurrent build never sees half a
+            # file, and a library on disk always has its log
+            os.replace(f"{tmp}.log", _log_path(so))
+            os.replace(tmp, so)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     for name in todo:
-        _loaded[name] = Library(ctypes.CDLL(_target(name)[1]), logs.get(name, ""))
+        so = _target(name)[1]
+        with open(_log_path(so)) as f:
+            _loaded[name] = Library(ctypes.CDLL(so), f.read())
     return {n: _loaded[n] for n in names}
+
+
+def _log_path(so: str) -> str:
+    return so[:-len(".so")] + ".log"
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -115,139 +115,166 @@ edge_max_fwd_kernel(const float* __restrict__ emb, const float* __restrict__ w,
 //
 // over valid (row, slot) pairs; invalid slots of d_w are 0.
 //
-// Layout: grid (B, ceil(L / kBwdRows)); a block owns kBwdRows rows, both as
-// source rows (d_emb) and as destination rows (d_w), and walks D in chunks of
-// blockDim.x lanes (one float each).  A source row's d_emb needs the chains of
-// the destination rows up to g away, so the block recomputes the chains of
-// its rows plus a halo of g rows each side and keeps their d_msg in shared
-// memory ([kBwdRows + 2g][2g+1][lanes] floats, 55 KB at g=4 and 128 lanes).
-// Every output element is written by exactly one thread, so there are no
-// atomics: d_emb adds its terms in the plain backward's order (k descending,
-// __fmul_rn/__fadd_rn so nvcc contracts nothing into an FMA) and equals it
-// bit for bit.  d_w reduces over D per lane, then across lanes by warp
-// shuffles and across warps in a fixed order: deterministic, but in another
-// order than the plain version's sum.
-//
 // Bound: bytes.  It reads emb, g and w and writes d_emb and d_w, about
 // 4*B*L*D*4 + 2*B*L*W*4 bytes (7.8 MB at B=16, L=100, D=300, g=4, ~2.3 us of
-// HBM time on an H100), against ~50 MFLOP of compare, multiply and add.  This
-// first version re-reads the halo rows' emb from L1/L2 and recomputes each
-// chain (kBwdRows + 2g) / kBwdRows times; staging with TMA and float4 lanes
-// are later work.
+// HBM time on an H100; less for the valid rows of short documents), against
+// ~50 MFLOP of compare, multiply and add.  So the kernel has to read each
+// element a small number of times, keep its intermediates out of memory, and
+// put enough threads on the card to hide the latency of a serial chain.
+//
+// Layout: grid (B, ceil(L / kBwdRows)), one thread per column d (a block of
+// D lanes rounded up to whole warps, walking column tiles of at most
+// kBwdMaxLanes).  A block owns kBwdRows rows, as source rows (d_emb) and as
+// destination rows (d_w).  Each thread sweeps the rows j of
+// [j0 - g, j0 + kBwdRows + g) in ascending order; for each row it recomputes
+// the chain and walks it back in registers, with two rings:
+//
+// - the W values emb[j-g .. j+g, d]: one row enters per step, so each element
+//   of emb is loaded (kBwdRows + 4g) / kBwdRows times, from HBM once;
+// - W running d_emb sums, one per source row s = j-g .. j+g, into which row j
+//   adds d_msg_k * w[j, k] for s = j + k - g.  As j rises a source row's k
+//   falls, so its terms arrive in the plain backward's order (k descending,
+//   __fmul_rn/__fadd_rn so nvcc contracts nothing into an FMA) and d_emb
+//   equals it bit for bit.  After row j, source row j - g is complete and is
+//   written if the block owns it.
+//
+// For an owned row, each lane's W products d_msg_k * emb[j+k-g, d] are summed
+// over the warp by shuffles into a shared [kBwdRows][W][warps] array (over
+// column tiles too), and the warps are summed in a fixed order at the end:
+// deterministic, in another order than the plain sum.
+//
+// The window W = 2g+1 is a template parameter (g = 0 .. 16 behind one
+// switch), so the rings and the chain are indexed at compile time and stay
+// in registers.  The tie split multiplies by 0.5 or 1 where the plain version
+// divides by 2 or 1: both round the same exact value, so the bits match.
+// Shared memory is static and a few KB (the chunk's weights and the d_w
+// partials), so a launch sets no attribute.  No atomics.  The cost of the
+// design: each chain is recomputed in every block whose rows it reaches,
+// (kBwdRows + 2g) / kBwdRows times in all.  On an H100 at B=16, L=100,
+// D=300, g=4 it takes 18-20 us a launch, still far above the bound (times
+// and the rows sweep in PERF.md).
 
-constexpr int kBwdRows = 4;
-constexpr int kBwdMaxLanes = 128;
-constexpr size_t kMaxDynamicSmem = 232448;  // 227 KB a block may opt into
+constexpr int kBwdRows = 8;  // rows a block owns, the fastest of 4, 8, 16 (PERF.md)
+constexpr int kBwdMaxLanes = 512;
+constexpr int kBwdMaxWarps = kBwdMaxLanes / 32;
 
+template <int NGRAM>
 __global__ void __launch_bounds__(kBwdMaxLanes)
 edge_max_bwd_kernel(const float* __restrict__ emb, const float* __restrict__ w,
                     const float* __restrict__ g, const int* __restrict__ lens,
-                    float* __restrict__ d_emb, float* __restrict__ d_w,
-                    int L, int D, int ngram) {
-  extern __shared__ float smem[];
-  const int W = 2 * ngram + 1;
-  const int H = kBwdRows + 2 * ngram;   // owned rows plus the halo
-  const int C = blockDim.x;             // lanes: the D chunk width
-  float* w_s = smem;                    // [H][W]
-  float* dm_s = smem + H * W;           // [H][W][C] d_msg of the span
+                    float* __restrict__ d_emb, float* __restrict__ d_w, int L, int D) {
+  constexpr int W = 2 * NGRAM + 1;
+  constexpr int H = kBwdRows + 2 * NGRAM;   // rows whose chains the block needs
+  __shared__ float w_s[H][W];
+  __shared__ float red[kBwdRows][W][kBwdMaxWarps];
 
   const int b = blockIdx.x;
   const int j0 = blockIdx.y * kBwdRows;
-  const int h0 = j0 - ngram;            // row of halo slot 0
-  const int tid = threadIdx.x;
+  const int rows = min(kBwdRows, L - j0);
   const int len = min(lens[b], L);
-  const float* eb = emb + (size_t)b * L * D;
-  const float* gb = g + (size_t)b * L * D;
+  const int tid = threadIdx.x;
+  const int C = blockDim.x;
+  const size_t base = (size_t)b * L * D;
 
-  for (int i = tid; i < H * W; i += C) {
-    const int j = h0 + i / W;
-    w_s[i] = (j >= 0 && j < L) ? w[((size_t)b * L + j) * W + i % W] : 0.f;
+  if (j0 >= len) {  // every owned row is padding
+    for (int i = tid; i < rows * D; i += C) d_emb[base + (size_t)j0 * D + i] = 0.f;
+    for (int i = tid; i < rows * W; i += C) d_w[((size_t)b * L + j0) * W + i] = 0.f;
+    return;
   }
-  float dw_part[kBwdRows][kMaxWindow];
-  for (int r = 0; r < kBwdRows; ++r)
-    for (int k = 0; k < W; ++k) dw_part[r][k] = 0.f;
+  for (int i = tid; i < H * W; i += C) {
+    const int j = j0 - NGRAM + i / W;
+    w_s[i / W][i % W] = (j >= 0 && j < len) ? w[((size_t)b * L + j) * W + i % W] : 0.f;
+  }
+  for (int i = tid; i < kBwdRows * W * kBwdMaxWarps; i += C) (&red[0][0][0])[i] = 0.f;
   __syncthreads();
 
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   for (int c0 = 0; c0 < D; c0 += C) {
     const int d = c0 + tid;
     const bool lane_ok = d < D;
-    // 1. the chain of every row of the span, walked backwards into d_msg
-    for (int hj = 0; hj < H; ++hj) {
-      const int j = h0 + hj;
-      float* dm = dm_s + (size_t)hj * W * C + tid;   // slot k at dm[k * C]
-      const float* wr = w_s + hj * W;
-      if (lane_ok && j >= 0 && j < len) {
-        float acc[kMaxWindow + 1];
+    // Rows outside [0, len) and lanes past D read 0, so such a lane's
+    // d_msg and d_w products are 0 too.
+    const float* e_col = emb + base + d;
+    const float* g_col = g + base + d;
+    auto load = [&](const float* col, int r) {
+      return (lane_ok && r >= 0 && r < len) ? col[(size_t)r * D] : 0.f;
+    };
+    float e[W];     // e[k] = emb[j + k - g, d] for the current row j
+    float part[W];  // part[k] = d_emb[j + k - g, d] so far
+    e[0] = 0.f;
+#pragma unroll
+    for (int k = 1; k < W; ++k) e[k] = load(e_col, j0 - 2 * NGRAM - 1 + k);
+#pragma unroll
+    for (int k = 0; k < W; ++k) part[k] = 0.f;
+    float e_next = load(e_col, j0);
+    float g_next = load(g_col, j0 - NGRAM);
+
+    for (int h = 0; h < H; ++h) {
+      const int j = j0 - NGRAM + h;
+#pragma unroll
+      for (int k = 0; k + 1 < W; ++k) e[k] = e[k + 1];
+      e[W - 1] = e_next;
+      const float g_j = g_next;
+      // the next row's loads go out before this row's arithmetic
+      e_next = load(e_col, j + 1 + NGRAM);
+      g_next = load(g_col, j + 1);
+
+      if (j >= 0 && j < len) {  // the same for every thread of the block
+        const float* wr = w_s[h];
+        float msg[W], acc[W + 1], dw[W];
         acc[0] = neg_inf();
+#pragma unroll
         for (int k = 0; k < W; ++k) {
-          const int s = j + k - ngram;
-          const float msg = (s >= 0 && s < len) ? __fmul_rn(eb[(size_t)s * D + d], wr[k])
-                                                : neg_inf();
-          dm[k * C] = msg;
-          acc[k + 1] = nan_max(acc[k], msg);
+          const int s = j + k - NGRAM;
+          msg[k] = (s >= 0 && s < len) ? __fmul_rn(e[k], wr[k]) : neg_inf();
+          acc[k + 1] = nan_max(acc[k], msg[k]);
         }
-        float g_acc = gb[(size_t)j * D + d];
+        float g_acc = g_j;
+#pragma unroll
         for (int k = W - 1; k >= 0; --k) {
           const float out = acc[k + 1];
-          const float msg_hit = dm[k * C] == out ? 1.f : 0.f;
-          const float prev_hit = acc[k] == out ? 1.f : 0.f;
-          const float d_msg = __fdiv_rn(__fmul_rn(g_acc, msg_hit), __fadd_rn(1.f, prev_hit));
-          g_acc = __fdiv_rn(__fmul_rn(g_acc, prev_hit), __fadd_rn(1.f, msg_hit));
-          const int s = j + k - ngram;
-          dm[k * C] = (s >= 0 && s < len) ? d_msg : 0.f;
+          const bool msg_hit = msg[k] == out;
+          const bool prev_hit = acc[k] == out;
+          // g * hit stays a multiply: inf * 0 is NaN, as in the plain version
+          const float d_msg =
+              __fmul_rn(__fmul_rn(g_acc, msg_hit ? 1.f : 0.f), prev_hit ? 0.5f : 1.f);
+          g_acc = __fmul_rn(__fmul_rn(g_acc, prev_hit ? 1.f : 0.f), msg_hit ? 0.5f : 1.f);
+          const int s = j + k - NGRAM;
+          if (s >= 0 && s < len) part[k] = __fadd_rn(part[k], __fmul_rn(d_msg, wr[k]));
+          dw[k] = __fmul_rn(d_msg, e[k]);
         }
-      } else {
-        for (int k = 0; k < W; ++k) dm[k * C] = 0.f;
-      }
-    }
-    __syncthreads();
-    // 2. each owned row as a source (d_emb) and as a destination (d_w partials)
-    if (lane_ok) {
-      for (int r = 0; r < kBwdRows && j0 + r < L; ++r) {
-        const int s = j0 + r;
-        float acc = 0.f;
-        for (int k = W - 1; k >= 0; --k) {
-          const int j = s - k + ngram;        // the row whose slot k reads row s
-          const int hj = r + 2 * ngram - k;
-          if (j >= 0 && j < len && s < len) {
-            acc = __fadd_rn(acc, __fmul_rn(dm_s[((size_t)hj * W + k) * C + tid], w_s[hj * W + k]));
-          }
-        }
-        d_emb[((size_t)b * L + s) * D + d] = acc;
-        if (s < len) {
-          const int hj = r + ngram;
+        const int r = h - NGRAM;  // the owned row j is j0 + r
+        if (r >= 0 && r < rows) {
+#pragma unroll
           for (int k = 0; k < W; ++k) {
-            const int src = s + k - ngram;
-            if (src >= 0 && src < len) {
-              dw_part[r][k] += dm_s[((size_t)hj * W + k) * C + tid] * eb[(size_t)src * D + d];
-            }
+            float v = dw[k];
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+            if (lane == 0) red[r][k][warp] += v;
           }
         }
       }
-    }
-    __syncthreads();
-  }
-
-  // 3. d_w: lanes by warp shuffles, then warps in order (dm_s is free now)
-  const int nwarps = C / 32;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* red = dm_s;                    // [kBwdRows * W][nwarps]
-  for (int r = 0; r < kBwdRows; ++r) {
-    for (int k = 0; k < W; ++k) {
-      float v = dw_part[r][k];
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) red[(r * W + k) * nwarps + warp] = v;
+      const int s = j - NGRAM;  // its last term came from row j
+      if (lane_ok && s >= j0 && s < j0 + rows) d_emb[base + (size_t)s * D + d] = part[0];
+#pragma unroll
+      for (int k = 0; k + 1 < W; ++k) part[k] = part[k + 1];
+      part[W - 1] = 0.f;
     }
   }
   __syncthreads();
-  for (int i = tid; i < kBwdRows * W; i += C) {
-    const int j = j0 + i / W;
-    const int s = j + i % W - ngram;
-    if (j >= L) continue;
+
+  const int nwarps = C / 32;
+  for (int i = tid; i < rows * W; i += C) {
+    const int r = i / W;
+    const int k = i % W;
+    const int j = j0 + r;
+    const int s = j + k - NGRAM;
     float v = 0.f;
-    for (int q = 0; q < nwarps; ++q) v += red[i * nwarps + q];
-    d_w[((size_t)b * L + j) * W + i % W] = (j < len && s >= 0 && s < len) ? v : 0.f;
+    if (j < len && s >= 0 && s < len) {
+      for (int q = 0; q < nwarps; ++q) v += red[r][k][q];
+    }
+    d_w[((size_t)b * L + j) * W + k] = v;
   }
 }
 
@@ -284,22 +311,24 @@ extern "C" int mgnns_edge_max_backward(const float* emb, const float* w,
                                        cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ngram < 0 || 2 * ngram + 1 > kMaxWindow) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int W = 2 * ngram + 1;
-  const size_t span = (size_t)(kBwdRows + 2 * ngram) * W;
-  // the widest chunk whose d_msg span fits in shared memory, no wider than D
-  int lanes = kBwdMaxLanes;
-  while (lanes > 32 && (span * (lanes + 1) * sizeof(float) > kMaxDynamicSmem ||
-                        lanes / 2 >= D)) {
-    lanes /= 2;
-  }
-  const size_t bytes = span * (lanes + 1) * sizeof(float);
-  err = cudaFuncSetAttribute(edge_max_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // the fewest column tiles of at most kBwdMaxLanes, split evenly
+  const int tiles = max(1, (D + kBwdMaxLanes - 1) / kBwdMaxLanes);
+  const int lanes = max(32, ((D + tiles - 1) / tiles + 31) / 32 * 32);
   dim3 grid(B, (L + kBwdRows - 1) / kBwdRows);
-  edge_max_bwd_kernel<<<grid, lanes, bytes, stream>>>(emb, w, g, lens, d_emb, d_w, L, D, ngram);
+#define MGNNS_K2_CASE(N)                                                            \
+  case N:                                                                           \
+    edge_max_bwd_kernel<N><<<grid, lanes, 0, stream>>>(emb, w, g, lens, d_emb, d_w, \
+                                                       L, D);                       \
+    break;
+  switch (ngram) {  // 2 * ngram + 1 <= kMaxWindow
+    MGNNS_K2_CASE(0) MGNNS_K2_CASE(1) MGNNS_K2_CASE(2) MGNNS_K2_CASE(3)
+    MGNNS_K2_CASE(4) MGNNS_K2_CASE(5) MGNNS_K2_CASE(6) MGNNS_K2_CASE(7)
+    MGNNS_K2_CASE(8) MGNNS_K2_CASE(9) MGNNS_K2_CASE(10) MGNNS_K2_CASE(11)
+    MGNNS_K2_CASE(12) MGNNS_K2_CASE(13) MGNNS_K2_CASE(14) MGNNS_K2_CASE(15)
+    MGNNS_K2_CASE(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MGNNS_K2_CASE
   return static_cast<int>(cudaGetLastError());
 }

@@ -73,21 +73,34 @@ def _k2_inputs(shape, device, seed=0):
     emb = torch.randn(B, L, D, generator=g, device=device)
     w = torch.randn(B, L, W, generator=g, device=device)
     lens = torch.randint(0, L + 1, (B,), generator=g, device=device, dtype=torch.int32)
-    lens[0], lens[1], lens[-1] = 0, 1, L
+    lens[-1] = L
+    if B > 1:
+        lens[0] = 0
+    if B > 2:
+        lens[1] = 1
     w[:, ::3, 0] = 0.0
-    emb[:, 2, :] = emb[:, 0, :]              # row 1 sees rows 0 and 2 with equal weights
-    w[:, 1, ngram - 1] = w[:, 1, ngram + 1]
+    if L > 2 and ngram > 0:
+        emb[:, 2, :] = emb[:, 0, :]          # row 1 sees rows 0 and 2 with equal weights
+        w[:, 1, ngram - 1] = w[:, 1, ngram + 1]
     emb[-1, L // 2, D // 2] = float("nan")
     up = torch.randn(B, L, D, generator=g, device=device)
     return emb, w, lens, up
 
 
+# (B, L, D, ngram): the model's shape and a small odd one; the smallest and
+# largest windows and g=1; D not a multiple of 32 and wider than a block's
+# lanes; one row, and rows in several chunks with L not a multiple of them;
+# one document
+K2_SHAPES = [(16, 100, 300, 4), (3, 7, 5, 2), (4, 20, 64, 0), (4, 20, 64, 1), (4, 50, 64, 16),
+             (4, 20, 33, 4), (4, 20, 1000, 4), (3, 1, 16, 2), (3, 257, 40, 4), (1, 30, 24, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 100, 300, 4), (3, 7, 5, 2)])
+@pytest.mark.parametrize("shape", K2_SHAPES)
 def test_edge_max_backward_kernel_equals_plain(cuda_device, shape):
     """K2 against its plain backward: d_emb exactly (the same float32 terms
     added in the same order), d_w within 1e-5 of scale (its sum over D runs
-    in another order)."""
+    in another order), NaN patterns equal."""
     emb, w, lens, up = _k2_inputs(shape, cuda_device)
     before = edge_max.bwd_launches
     d_emb, d_w = edge_max._backward(emb, w, lens, up, shape[3])

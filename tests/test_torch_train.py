@@ -50,7 +50,10 @@ def _k2_inputs(seed, B=4, L=12, D=8, ngram=1, case="random"):
     return np.ascontiguousarray(emb), w, lens, g
 
 
-K2_CASES = [(ngram, case) for ngram in (1, 3) for case in ("random", "ties", "constant")]
+# g=0 is the degenerate window: one message a row, so no tie for ``constant``
+# to split; g=4 is the model's window
+K2_CASES = [(ngram, case) for ngram in (0, 1, 2, 3, 4) for case in ("random", "ties", "constant")
+            if (ngram, case) != (0, "constant")]
 
 
 @pytest.mark.parametrize("ngram,case", K2_CASES)
