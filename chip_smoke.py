@@ -10,10 +10,12 @@ Phases (any failure exits non-zero, and no result line is printed):
 0. the card: name and power limit, TF32 off for convolutions and matmuls
    (the port computes in full float32);
 1. build every CUDA kernel (K1, K2) from ``mgnns_tpu_torch/kernels/csrc``;
-   ptxas's registers, stack and spills of K2 at the model's window (g=4),
-   which must use no local memory;
-2. K1 against its plain PyTorch version on the card, at the model's shapes
-   and a small odd one, exactly; kernel and plain times;
+   ptxas's registers, stack and spills of K1 and K2 at the model's window
+   (g=4), which must use no local memory;
+2. K1 against its plain PyTorch version on the card, exactly, at the model's
+   shape, a small odd one, g=0 and g=16 at full width and D=33 (the scalar
+   path); kernel, plain and bound times, and the time of a pass that only
+   writes K1's output (the floor of a kernel of that size);
 2b. K2 against its plain backward the same way, and at g=0 and g=16:
    ``d_emb`` exactly, ``d_w`` within 1e-5 of scale (its sum over D runs in
    another order), the constant-input tie case exactly; kernel and plain
@@ -76,7 +78,9 @@ VOCAB_SIZE = 20153          # ModelConfig.vocab_size
 N_DOCS = 10_000
 REQUEST_SIZES = (1, 5, 16, 37)
 REPEATS = 3
-K2_PTXAS_NAME = "edge_max_bwd_kernelILi4E"   # the mangled name of K2's g=4 instantiation
+# the mangled names of K1's (float4, bulk copy) and K2's g=4 instantiations
+K1_PTXAS_NAME = "edge_max_fwd_kernelILi4ELb1E"
+K2_PTXAS_NAME = "edge_max_bwd_kernelILi4E"
 LABELS = {name: i for i, name in enumerate(
     ["angry", "bored", "calm", "fear", "happy", "love", "sad"])}
 
@@ -144,7 +148,10 @@ def k1_bound_ms(lens: torch.Tensor, L: int, D: int, ngram: int) -> tuple[float, 
 
 def phase2_k1() -> dict:
     max_err = 0.0
-    for shape in ((16, 100, 300, 4), (3, 7, 5, 2)):
+    # the model's shape, a small odd one, the smallest and largest windows at
+    # full width, and D = 33, which takes the scalar path
+    for shape in ((16, 100, 300, 4), (3, 7, 5, 2), (16, 100, 300, 0), (16, 100, 300, 16),
+                  (4, 20, 33, 4)):
         emb, w, lens = k1_inputs(*shape, seed=sum(shape))
         got = edge_max.window_max_aggregate(emb, w, lens, shape[3])
         torch.cuda.synchronize()
@@ -166,9 +173,13 @@ def phase2_k1() -> dict:
     bound_ms, bound_by = k1_bound_ms(lens, L, D, ngram)
     device_us = kernel_us(lambda: edge_max.window_max_aggregate(emb, w, lens, ngram),
                           "edge_max_fwd")
+    # a pass that only writes K1's output; the fill is the only kernel it runs
+    out = torch.empty_like(emb)
+    floor_us = kernel_us(lambda: out.fill_(float("-inf")), "")
     log(f"phase 2: K1 at B={B} L={L} D={D} g={ngram}: {ms * 1e3} us per call back to back "
         f"(CUDA events), {device_us} us of kernel time per launch (profiler), plain "
-        f"{plain_ms * 1e3} us, bound {bound_ms * 1e3} us ({bound_by}); {card_line()}")
+        f"{plain_ms * 1e3} us, bound {bound_ms * 1e3} us ({bound_by}); store-only floor "
+        f"(out.fill_, profiler) {floor_us} us; {card_line()}")
     return {"name": "edge_max_fwd (K1)", "route": "cuda",
             "source": "mgnns_tpu_torch/kernels/csrc/edge_max.cu",
             "replaces": "mgnns_tpu/kernels/edge_max.py:36",
@@ -739,14 +750,16 @@ def main() -> int:
     log(f"phase 1: built {sorted(libs)} in {time.perf_counter() - t0} s")
     for lib in libs.values():
         log(lib.log.strip())
-    # K2's register rings must stay in registers at the model's window (g=4);
-    # the log is the one kept beside the library, built in this run or before
-    report = ptxas_report(libs["edge_max"].log, K2_PTXAS_NAME)
-    local = local_memory_bytes(report)
-    log(f"phase 1: ptxas, K2 at g=4: {' | '.join(report.splitlines())}")
-    if any(local):
-        raise SystemExit(f"phase 1: K2 at g=4 uses local memory (stack, spill stores, "
-                         f"spill loads: {local} bytes)")
+    # K1's chain and K2's register rings must stay in registers at the model's
+    # window (g=4); the log is the one kept beside the library, built in this
+    # run or before
+    for kernel, mangled in (("K1", K1_PTXAS_NAME), ("K2", K2_PTXAS_NAME)):
+        report = ptxas_report(libs["edge_max"].log, mangled)
+        local = local_memory_bytes(report)
+        log(f"phase 1: ptxas, {kernel} at g=4: {' | '.join(report.splitlines())}")
+        if any(local):
+            raise SystemExit(f"phase 1: {kernel} at g=4 uses local memory (stack, spill "
+                             f"stores, spill loads: {local} bytes)")
 
     k1 = phase2_k1()
     k2 = phase2b_k2()

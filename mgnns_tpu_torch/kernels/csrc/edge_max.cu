@@ -4,31 +4,62 @@
 //   out[b, j, :] = max_{o in [-g, g], 0 <= j+o < len_b} emb[b, j+o, :] * w[b, j, g+o]
 //   for j < len_b; rows j >= len_b are -inf.
 //
-// Replaces the Pallas TPU kernel mgnns_tpu/kernels/edge_max.py:_kernel.  That
-// kernel keeps one document's [L, D] tile in VMEM and realises the window
-// shift as a circular pltpu.roll killed by a validity mask.  Here each thread
-// reads the shifted row j+o directly and skips the invalid ones, so no mask is
-// materialised and padded rows read nothing.
+// K1 replaces the Pallas TPU kernel mgnns_tpu/kernels/edge_max.py:_kernel
+// (entered through _forward).  That kernel keeps one document's [L, D] tile in
+// VMEM and realises the window shift as a circular pltpu.roll killed by a
+// validity mask.
 //
-// Bound: bytes.  Each element of emb is read and each element of out written
-// about once (the 2g+1 re-reads of a source row hit L1/L2), plus the [B, L, W]
-// weights: at B=16, L=100, D=300, g=4 about 3.9 MB, ~1.2 us of HBM time on an
-// H100, against ~9 MFLOP of multiply+max.  At that size a launch costs more
-// than the traffic, so this simple layout is launch-bound; making it faster
-// is later work.
+// Bound: bytes.  K1 must read the valid rows of emb and w once and write every
+// row of out once: at B=16, L=100, D=300, g=4 with lens drawn in [0, 100]
+// about 2.7 MB, 0.81 us of HBM time on an H100, against a few MFLOP of
+// multiply and max.  At that size the grid is one wave of small blocks, so
+// what a launch costs is the latency from its start to its last store, and
+// the design shortens that chain:
 //
-// Layout: grid (B, ceil(L / kRows)); a block of (kLanes, kRows) threads holds
-// kRows destination rows, lanes stride over D in float4 vectors when D % 4 == 0
-// (D = 300 is 75 vectors).  The row's 2g+1 weights are staged in shared memory
-// once per block.  Max follows jnp.maximum / torch.maximum: a NaN operand
-// wins (fmaxf would drop it).
+// - Grid (B, ceil(L / kFwdRows), column tiles); a block owns kFwdRows
+//   destination rows j0 .. j0+kFwdRows-1 of one document and a tile of
+//   columns (one tile whenever the kFwdRows + 2g source rows of D floats fit
+//   the stage: D = 300 up to g = 11).
+// - A block whose rows all lie at or past len_b (about half of them at the
+//   model's lengths) reads lens[b] only and writes -inf with 16-byte stores.
+// - Otherwise one thread stages the source rows [max(0, j0-g),
+//   min(len_b, j0+kFwdRows+g)) in shared memory with Hopper's bulk copy
+//   (cp.async.bulk, completion counted in bytes on an mbarrier): one copy
+//   when the block spans D, where the rows are contiguous in emb and in the
+//   stage, else one a row.  Rows at or past len_b are never copied or read.
+//   While the copy flies, each thread loads its row's 2g+1 weights into
+//   registers, so the only memory round trips before the arithmetic are
+//   lens[b] and, side by side, the copy and the weights.  Each source row
+//   comes from memory once for the block and is read 2g+1 times from shared
+//   memory.
+// - One thread per (row, float4 column) item, as many threads as fill the
+//   block's items in the fewest rounds of at most kFwdMaxThreads.  The
+//   window is a template parameter (g = 0 .. 16 behind one switch), so the
+//   slot loop unrolls: an item issues its 2g+1 shared-memory reads at once,
+//   runs the max chain in registers and writes one float4, coalesced.  Rows
+//   whose whole window is valid (j - g >= 0, j + g < len_b) run it without
+//   the per-slot tests.
+// - When D % 4 != 0 or a pointer is not 16-byte aligned the bulk copy is not
+//   allowed: the same body stages with a cooperative copy of floats and
+//   computes one float an item.
+//
+// The chain is the plain version's: acc = -inf, k ascending, one __fmul_rn
+// product and a max each, invalid slots skipped (equal to its -inf fill).  Max
+// follows jnp.maximum / torch.maximum: a NaN operand wins (fmaxf would drop
+// it).  So K1 equals the plain version bit for bit, NaN and the sign of a zero
+// result included (tests/test_torch_cuda.py).
+// Shared memory is static (at most kFwdStageFloats floats of staged rows), so
+// a launch sets no attribute.  No atomics.  On an H100 at B=16, L=100, D=300,
+// g=4 it takes ~2.9 us a launch, against the 0.81 us bound and ~1.3 us for a
+// kernel that only writes out (times and the rows sweep in PERF.md).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
-constexpr int kLanes = 32;
-constexpr int kRows = 4;
 constexpr int kMaxWindow = 33;  // ngram <= 16
 
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -52,47 +83,171 @@ __device__ __forceinline__ void max_msg(float4& acc, float4 s, float wk) {
   max_msg(acc.w, s.w, wk);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kLanes * kRows)
+constexpr int kFwdRows = 4;             // rows a block owns, the fastest of 4, 8, 16 (PERF.md)
+constexpr int kFwdMaxThreads = 512;
+constexpr int kFwdStageFloats = 8192;   // 32 KB of staged source rows
+
+// Floats of one staged row: the widest column tile, a multiple of 4, whose
+// kFwdRows + 2g rows fit the stage.
+__host__ __device__ constexpr int fwd_tile_cap(int ngram) {
+  return kFwdStageFloats / (kFwdRows + 2 * ngram) / 4 * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Hopper's bulk copy from global to shared memory, counted on `bar` in bytes:
+// both addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Spins until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// kBulk: float4 items, rows staged by bulk copy; else floats, staged by a
+// cooperative copy.  dt is the column tile's width, D when one tile spans D,
+// else a multiple of 4 (the last tile may be narrower).
+template <int NGRAM, bool kBulk>
+__global__ void __launch_bounds__(kFwdMaxThreads)
 edge_max_fwd_kernel(const float* __restrict__ emb, const float* __restrict__ w,
                     const int* __restrict__ lens, float* __restrict__ out,
-                    int L, int D, int ngram) {
+                    int L, int D, int dt) {
+  using T = typename std::conditional<kBulk, float4, float>::type;
   constexpr int kVec = sizeof(T) / sizeof(float);
-  __shared__ float w_s[kRows][kMaxWindow];
+  constexpr int W = 2 * NGRAM + 1;
+  // stage row h holds columns [c0, c0 + ct) of source row j0 - NGRAM + h, at stride dt
+  __shared__ __align__(128) float stage[(kFwdRows + 2 * NGRAM) * fwd_tile_cap(NGRAM)];
+  __shared__ uint64_t bar;
 
   const int b = blockIdx.x;
-  const int j = blockIdx.y * kRows + threadIdx.y;
-  const int W = 2 * ngram + 1;
-  const bool row_in_range = j < L;
+  const int j0 = blockIdx.y * kFwdRows;
+  const int rows = min(kFwdRows, L - j0);
+  const int c0 = blockIdx.z * dt;
+  const int nv = min(dt, D - c0) / kVec;  // items a row
+  const int tid = threadIdx.x;
   // lens beyond L would read past the document; the padded buffer holds L rows
   const int len = min(lens[b], L);
+  T* dst = reinterpret_cast<T*>(out + ((size_t)b * L + j0) * D + c0);
 
-  if (row_in_range) {
-    for (int k = threadIdx.x; k < W; k += kLanes) {
-      w_s[threadIdx.y][k] = w[((size_t)b * L + j) * W + k];
+  if (j0 >= len) {  // every owned row is padding: nothing to read
+    T ninf;
+    fill_neg_inf(ninf);
+    for (int i = tid; i < rows * nv; i += blockDim.x) {
+      const int r = i / nv;
+      dst[(size_t)r * (D / kVec) + i - r * nv] = ninf;
+    }
+    return;
+  }
+
+  const int lo = max(0, j0 - NGRAM);
+  const int n_src = min(len, j0 + kFwdRows + NGRAM) - lo;  // >= 1: row j0 is valid
+  const int ct = nv * kVec;
+  float* stage_lo = stage + (lo - j0 + NGRAM) * dt;
+  const float* src_lo = emb + ((size_t)b * L + lo) * D + c0;
+  if constexpr (kBulk) {
+    if (tid == 0) {
+      mbar_init(&bar, 1);
+      const uint32_t row_bytes = ct * sizeof(float);
+      mbar_arrive_expect_tx(&bar, n_src * row_bytes);
+      if (ct == D) {  // one tile: the rows are contiguous in emb and in the stage
+        bulk_copy_g2s(stage_lo, src_lo, n_src * row_bytes, &bar);
+      } else {
+        for (int s = 0; s < n_src; ++s) {
+          bulk_copy_g2s(stage_lo + s * dt, src_lo + (size_t)s * D, row_bytes, &bar);
+        }
+      }
+    }
+  } else {
+    for (int i = tid; i < n_src * ct; i += blockDim.x) {
+      const int s = i / ct;
+      stage_lo[s * dt + i - s * ct] = src_lo[(size_t)s * D + i - s * ct];
     }
   }
-  __syncthreads();
-  if (!row_in_range) return;
+  __syncthreads();  // bar is initialised (the floats' stage is filled)
 
-  const int nvec = D / kVec;
-  const T* src = reinterpret_cast<const T*>(emb + (size_t)b * L * D);
-  T* dst = reinterpret_cast<T*>(out + ((size_t)b * L + j) * D);
-  const float* wr = w_s[threadIdx.y];
-
-  for (int v = threadIdx.x; v < nvec; v += kLanes) {
+  const float* w_blk = w + ((size_t)b * L + j0) * W;
+  const T* st = reinterpret_cast<const T*>(stage);
+  const int sv = dt / kVec;  // a stage row's stride in items
+  for (int i = tid; i < rows * nv; i += blockDim.x) {
+    const int r = i / nv;
+    const int v = i - r * nv;
+    const int j = j0 + r;
+    // the row's weights go out before the wait, beside the copy; after the
+    // first item the wait returns at once
+    float wk[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) wk[k] = w_blk[r * W + k];
+    if constexpr (kBulk) mbar_wait(&bar, 0);
+    // slot k reads source row j + k - g, stage row r + k
+    const T* col = st + r * sv + v;
     T acc;
     fill_neg_inf(acc);
-    // slot k reads source row s = j + k - g; invalid slots are skipped, which
-    // equals the Pallas kernel's -inf fill.  (Looping o over a precomputed
-    // [lo, hi] range instead was miscompiled by ptxas -O3 of CUDA 12.9: the
-    // loop ran to +g whatever hi held.)
-    for (int k = 0; k < W; ++k) {
-      const int s = j + k - ngram;
-      if (s >= 0 && s < len && j < len) max_msg(acc, src[(size_t)s * nvec + v], wr[k]);
+    if (j >= NGRAM && j + NGRAM < len) {  // every slot valid: no tests
+      T e[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) e[k] = col[k * sv];
+#pragma unroll
+      for (int k = 0; k < W; ++k) max_msg(acc, e[k], wk[k]);
+    } else if (j < len) {
+      // invalid slots are skipped, which equals the plain version's -inf fill
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const int s = j + k - NGRAM;
+        if (s >= 0 && s < len) max_msg(acc, col[k * sv], wk[k]);
+      }
     }
-    dst[v] = acc;
+    dst[(size_t)r * (D / kVec) + v] = acc;
   }
+}
+
+// Splits D into the fewest column tiles the stage holds and launches K1 with
+// the fewest rounds of items a thread.
+template <int NGRAM>
+int launch_fwd(const float* emb, const float* w, const int* lens, float* out, int B, int L, int D,
+               int vec, cudaStream_t stream) {
+  static_assert(2 * NGRAM + 1 <= kMaxWindow, "the window the wrapper allows");
+  constexpr int cap = fwd_tile_cap(NGRAM);
+  const int tiles = (D + cap - 1) / cap;
+  const int dt = tiles == 1 ? D : ((D + tiles - 1) / tiles + 3) / 4 * 4;
+  const int items = kFwdRows * (vec == 4 ? dt / 4 : dt);
+  const int rounds = (items + kFwdMaxThreads - 1) / kFwdMaxThreads;
+  const int threads = ((items + rounds - 1) / rounds + 31) / 32 * 32;
+  const dim3 grid(B, (L + kFwdRows - 1) / kFwdRows, tiles);
+  if (vec == 4) {
+    edge_max_fwd_kernel<NGRAM, true><<<grid, threads, 0, stream>>>(emb, w, lens, out, L, D, dt);
+  } else {
+    edge_max_fwd_kernel<NGRAM, false><<<grid, threads, 0, stream>>>(emb, w, lens, out, L, D, dt);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -280,26 +435,28 @@ edge_max_bwd_kernel(const float* __restrict__ emb, const float* __restrict__ w,
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).  The
-// caller checks shapes, types, contiguity and, for vec == 4, that D % 4 == 0
-// and both pointers are 16-byte aligned.
+// K1.  Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// The caller checks shapes, types, contiguity and, for vec == 4, that
+// D % 4 == 0 and both pointers are 16-byte aligned, and passes B, L, D >= 1.
 extern "C" int mgnns_edge_max_forward(const float* emb, const float* w,
                                       const int* lens, float* out, int B, int L,
                                       int D, int ngram, int vec, int device,
                                       cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ngram < 0 || 2 * ngram + 1 > kMaxWindow) {
-    return static_cast<int>(cudaErrorInvalidValue);
+#define MGNNS_K1_CASE(N) \
+  case N:                \
+    return launch_fwd<N>(emb, w, lens, out, B, L, D, vec, stream);
+  switch (ngram) {  // 2 * ngram + 1 <= kMaxWindow
+    MGNNS_K1_CASE(0) MGNNS_K1_CASE(1) MGNNS_K1_CASE(2) MGNNS_K1_CASE(3)
+    MGNNS_K1_CASE(4) MGNNS_K1_CASE(5) MGNNS_K1_CASE(6) MGNNS_K1_CASE(7)
+    MGNNS_K1_CASE(8) MGNNS_K1_CASE(9) MGNNS_K1_CASE(10) MGNNS_K1_CASE(11)
+    MGNNS_K1_CASE(12) MGNNS_K1_CASE(13) MGNNS_K1_CASE(14) MGNNS_K1_CASE(15)
+    MGNNS_K1_CASE(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid(B, (L + kRows - 1) / kRows);
-  dim3 block(kLanes, kRows);
-  if (vec == 4) {
-    edge_max_fwd_kernel<float4><<<grid, block, 0, stream>>>(emb, w, lens, out, L, D, ngram);
-  } else {
-    edge_max_fwd_kernel<float><<<grid, block, 0, stream>>>(emb, w, lens, out, L, D, ngram);
-  }
-  return static_cast<int>(cudaGetLastError());
+#undef MGNNS_K1_CASE
 }
 
 // K2.  Launches on `stream` and returns the first CUDA error (0 = launched).

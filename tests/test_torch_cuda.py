@@ -23,47 +23,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 100, 300, 4), (3, 7, 5, 2)])
-def test_edge_max_kernel_equals_plain(cuda_device, shape):
-    """K1 against its plain version on the card, exactly (one float32
-    multiply and a max each), with lens 0, 1 and L and a NaN message."""
-    B, L, D, ngram = shape
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    emb = torch.randn(B, L, D, generator=g, device=cuda_device)
-    w = torch.randn(B, L, 2 * ngram + 1, generator=g, device=cuda_device)
-    lens = torch.randint(0, L + 1, (B,), generator=g, device=cuda_device, dtype=torch.int32)
-    lens[0], lens[1], lens[-1] = 0, 1, L
-    emb[-1, 0, 0] = float("nan")
-    before = edge_max.launches
-    got = edge_max.window_max_aggregate(emb, w, lens, ngram)
-    torch.cuda.synchronize()
-    assert edge_max.launches == before + 1
-    want = edge_max.window_max_aggregate_plain(emb, w, lens, ngram)
-    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
-
-
-@pytest.mark.cuda
-def test_text_model_on_card_matches_cpu(cuda_device):
-    """The text-only model through K1 on the card against the same weights on
-    the CPU (plain version): float32 sums in another order, so 1e-5."""
-    V, E, B, L, ngram = 50, 40, 4, 12, 2
-    params = text_model_init(V, 7, E, seed=0, device=cuda_device)
-    r = np.random.default_rng(0)
-    lens = np.array([1, 5, 12, 9], np.int32)
-    ids = r.integers(1, V, (B, L)).astype(np.int32)
-    ids[np.arange(L)[None, :] >= lens[:, None]] = 0
-    eids = r.integers(0, E, (B, L, 2 * ngram + 1)).astype(np.int32)
-    batch = {"ids": ids, "lens": lens, "eids": eids}
-    with torch.inference_mode():
-        got = text_model_apply(params, {k: torch.from_numpy(v).to(cuda_device)
-                                        for k, v in batch.items()}, ngram=ngram)
-        cpu_params = {k: {kk: vv.cpu() for kk, vv in v.items()} for k, v in params.items()}
-        want = text_model_apply(cpu_params, {k: torch.from_numpy(v) for k, v in batch.items()},
-                                ngram=ngram)
-    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
-
-
 def _k2_inputs(shape, device, seed=0):
     """K1's card inputs (lens 0, 1 and L, zero weights, an engineered tie,
     a NaN) and a random upstream gradient."""
@@ -93,6 +52,58 @@ def _k2_inputs(shape, device, seed=0):
 # one document
 K2_SHAPES = [(16, 100, 300, 4), (3, 7, 5, 2), (4, 20, 64, 0), (4, 20, 64, 1), (4, 50, 64, 16),
              (4, 20, 33, 4), (4, 20, 1000, 4), (3, 1, 16, 2), (3, 257, 40, 4), (1, 30, 24, 3)]
+
+
+# K1's cases: K2's shapes (D = 5 and 33 take the scalar path), more
+# documents than a warp's lanes (K1 orders its blocks by a warp scan of lens),
+# and one whose emb lies 4 bytes past a 16-byte boundary, so that D % 4 == 0
+# takes the scalar path too
+K1_CASES = [pytest.param(shape, False, id=f"shape{i}") for i, shape in enumerate(K2_SHAPES)] + [
+    pytest.param((40, 9, 8, 1), False, id="many-documents"),
+    pytest.param((4, 20, 64, 4), True, id="unaligned")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,unaligned", K1_CASES)
+def test_edge_max_kernel_equals_plain(cuda_device, shape, unaligned):
+    """K1 against its plain version on the card, exactly (one float32
+    multiply and a max each, in the same order), with lens 0, 1 and L, zero
+    weights, an engineered tie and a NaN message; a zero result keeps its
+    sign."""
+    emb, w, lens, _ = _k2_inputs(shape, cuda_device)
+    if unaligned:
+        buf = torch.empty(emb.numel() + 1, device=cuda_device)
+        emb = buf[1:].view(emb.shape).copy_(emb)
+        assert emb.is_contiguous() and emb.data_ptr() % 16 == 4
+    before = edge_max.launches
+    got = edge_max.window_max_aggregate(emb, w, lens, shape[3])
+    torch.cuda.synchronize()
+    assert edge_max.launches == before + 1
+    want = edge_max.window_max_aggregate_plain(emb, w, lens, shape[3])
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.signbit(got[~nan]), torch.signbit(want[~nan]))
+
+
+@pytest.mark.cuda
+def test_text_model_on_card_matches_cpu(cuda_device):
+    """The text-only model through K1 on the card against the same weights on
+    the CPU (plain version): float32 sums in another order, so 1e-5."""
+    V, E, B, L, ngram = 50, 40, 4, 12, 2
+    params = text_model_init(V, 7, E, seed=0, device=cuda_device)
+    r = np.random.default_rng(0)
+    lens = np.array([1, 5, 12, 9], np.int32)
+    ids = r.integers(1, V, (B, L)).astype(np.int32)
+    ids[np.arange(L)[None, :] >= lens[:, None]] = 0
+    eids = r.integers(0, E, (B, L, 2 * ngram + 1)).astype(np.int32)
+    batch = {"ids": ids, "lens": lens, "eids": eids}
+    with torch.inference_mode():
+        got = text_model_apply(params, {k: torch.from_numpy(v).to(cuda_device)
+                                        for k, v in batch.items()}, ngram=ngram)
+        cpu_params = {k: {kk: vv.cpu() for kk, vv in v.items()} for k, v in params.items()}
+        want = text_model_apply(cpu_params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                ngram=ngram)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

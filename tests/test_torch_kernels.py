@@ -34,7 +34,7 @@ def _inputs(seed, B=4, L=16, D=8, ngram=2, ties=False):
 
 
 @pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
-@pytest.mark.parametrize("ngram", [2, 4])
+@pytest.mark.parametrize("ngram", [0, 1, 2, 4, 16])  # every window K1 instantiates, ends and model
 def test_plain_equals_pallas_and_jnp(ngram, ties):
     emb, w, lens = _inputs(ngram, ngram=ngram, ties=ties)
     ours = edge_max.window_max_aggregate_plain(
