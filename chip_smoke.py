@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA card::
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-0. the card: name and power limit, TF32 off for convolutions and matmuls
-   (the port computes in full float32);
+0. the card: name and power limit, torch's global TF32 flags as found (left
+   as they are) and the conv precision the package pins for its float32
+   trunk convolutions;
 1. build every CUDA kernel (K1, K2) from ``mgnns_tpu_torch/kernels/csrc``;
    ptxas's registers, stack and spills of K1 and K2 at the model's window
    (g=4), which must use no local memory;
@@ -25,8 +26,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    label graphs, ``ModelConfig()`` weights from a seed, and a
    ``Predictor(max_batch=16)`` answering requests of 1, 5, 16 and 37 records;
    the launch counts of the run, one batch's logits against the same forward
-   with K1's plain version, and one record's logits against the CPU; then the
-   text-only model the same way;
+   with K1's plain version, and one record's logits against the CPU under the
+   package's default (within 1e-5 of scale), then the same with the
+   precision pin removed and TF32 allowed, which must differ more; the trunk
+   gradients of a 1-record train step (running-statistics BatchNorm, dropout
+   0) on the card against the CPU the same two ways (Frobenius-relative
+   5e-3, and TF32 further); then the text-only model as the fusion model;
 4. the training path at full width: ``Engine.learning`` (Adam, the default
    learning rates, train-mode BatchNorm) for 2 epochs of 64 synthetic
    records in batches of 16 from the port's loader, validation on 32 and a
@@ -34,7 +39,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    run, the best checkpoint restored, one step with K1/K2 against the same
    step with their plain versions, a text-only step on the card against the
    CPU, 10 steps on one batch lowering its loss; step time, samples/s, peak
-   memory and one profiled step.
+   memory and one profiled step;
+4b. bf16 trunks at full width on phase 4's weights and batch: the logits'
+   drift from float32 (within the JAX package's bf16 bound, 4e-2 of scale,
+   and on one record within twice the CPU's drift), one bf16
+   step's loss and gradients (finite, trunk gradients non-zero, master
+   parameters float32), step ms of bf16 and float32 in turns, the peak
+   memory of each, and the kernel ms of the two trunk ranges;
+5. the training CLI on the card: a data tree built here (annotations, GloVe
+   pickles, adjacency pickles and a vocabulary by ``mgnns_tpu_torch.cli.
+   prepare``); ``mgnns_tpu_torch.cli.main`` trains the text-only model to
+   above 0.8 validation and test accuracy, and the full-width fusion model
+   at bf16 for one epoch, with K1 launched once per forward and K2 once per
+   train step, and the result, metrics and preprocessing files written.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -42,10 +59,12 @@ line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import pickle
 import random
 import re
 import statistics
@@ -68,6 +87,7 @@ from mgnns_tpu_torch.graphs.pmi import cal_pmi
 from mgnns_tpu_torch.kernels import build, edge_max
 from mgnns_tpu_torch.models.mgnns import mgnns_apply, mgnns_init
 from mgnns_tpu_torch.models.text_only import text_model_apply, text_model_init
+from mgnns_tpu_torch.nn import resnet
 from mgnns_tpu_torch.serving import Predictor
 from mgnns_tpu_torch.utils import tree_leaves, tree_map, tree_to, tree_unflatten
 
@@ -445,22 +465,36 @@ def phase3(k1: dict) -> None:
     if not (logits.shape == (16, 7) and torch.isfinite(logits).all() and diff <= tol):
         raise SystemExit("phase 3: logits with K1 disagree with the plain version")
 
-    # one record on the card against the same forward on the CPU
+    # one record on the card against the same forward on the CPU, under the
+    # package's default and then with its conv precision pin removed and TF32
+    # allowed: the first must hold float32's tolerance, the second differ more
     one = {k: v[:1] for k, v in batch.items()}
+    cpu = torch.device("cpu")
     with torch.inference_mode():
-        card = mgnns_apply(pred.params, pred.batch_stats, pred.consts, one, cfg=cfg)[0].cpu()
-        host = mgnns_apply(tree_to(pred.params, torch.device("cpu")),
-                           tree_to(pred.batch_stats, torch.device("cpu")),
-                           tree_to(pred.consts, torch.device("cpu")),
-                           {k: v.cpu() for k, v in one.items()}, cfg=cfg)[0]
-    diff = float((card - host).abs().max())
-    tol = 1e-3 * max(1.0, float(host.abs().max()))  # two full-depth trunks, sums in another order
-    log(f"phase 3: 1-record logits card vs CPU: max |diff| {diff} (tolerance {tol})")
-    if diff > tol:
+        host = mgnns_apply(tree_to(pred.params, cpu), tree_to(pred.batch_stats, cpu),
+                           tree_to(pred.consts, cpu), {k: v.cpu() for k, v in one.items()},
+                           cfg=cfg)[0]
+    diffs = {}
+    for label in ("pinned", "unpinned TF32"):
+        with (tf32_unpinned() if label == "unpinned TF32" else contextlib.nullcontext()), \
+                torch.inference_mode():
+            card = mgnns_apply(pred.params, pred.batch_stats, pred.consts, one, cfg=cfg)[0].cpu()
+        diffs[label] = float((card - host).abs().max())
+    # two full-depth trunks in float32, sums in another order
+    tol = 1e-5 * max(1.0, float(host.abs().max()))
+    log(f"phase 3: 1-record logits card vs CPU: max |diff| {diffs['pinned']} under the "
+        f"package's default (tolerance {tol}), {diffs['unpinned TF32']} with the pin removed "
+        f"and TF32 allowed; global conv precision after: "
+        f"{torch.backends.cudnn.conv.fp32_precision}")
+    if diffs["pinned"] > tol:
         raise SystemExit("phase 3: card and CPU forwards disagree")
+    if not diffs["unpinned TF32"] > diffs["pinned"]:
+        raise SystemExit("phase 3: the TF32 forward is no further from the CPU than the pinned "
+                         "one, so the card-vs-CPU check cannot see the conv precision")
 
     profile_forward(pred, batch_np)
     pred.close()
+    trunk_grads_card_vs_cpu(cfg, graph.num_edges, object_A, place_A, batch_np)
 
     # the text-only model through the same Predictor
     text_params = text_model_init(len(vocab), len(LABELS), graph.num_edges, seed=0, device="cuda")
@@ -471,6 +505,73 @@ def phase3(k1: dict) -> None:
     tpred.close()
     return {"vocab": vocab, "texts": texts, "graph": graph, "cfg": cfg, "object_A": object_A,
             "place_A": place_A, "r": r}
+
+
+@contextlib.contextmanager
+def tf32_unpinned():
+    """The package's conv precision pin replaced by a no-op, and TF32 allowed
+    for cuDNN's float32 convolutions; both restored after."""
+    conv = torch.backends.cudnn.conv
+    saved = conv.fp32_precision
+    conv.fp32_precision = "tf32"
+    try:
+        with mock.patch.object(resnet, "ieee_float32_convs", contextlib.nullcontext):
+            yield
+    finally:
+        conv.fp32_precision = saved
+
+
+def trunk_grads_card_vs_cpu(cfg, num_edges, object_A, place_A, batch_np) -> None:
+    """The trunk gradients of a 1-record train step (running-statistics
+    BatchNorm, dropout 0) on the card against the CPU, with weights made on
+    the CPU and moved to the card: under the package's default, and with the
+    precision pin removed and TF32 allowed, which must differ more.
+
+    They are compared by the Frobenius norm of the difference over all
+    trunk leaves, relative to the CPU's: the largest single difference is a
+    few 1e-3 of scale even in IEEE float32, because where two inputs of the
+    global max pool or a ReLU's input nearly tie, float32 sums in another
+    order send the gradient down another path.  The tolerance, 5e-3, sits
+    several times above the float32 readings on an H100 and an order of
+    magnitude under the TF32 ones (``PERF.md``, section 6)."""
+    cfg = dataclasses.replace(cfg, bn_mode="frozen", dropout=0.0, text_dropout=0.0)
+    r = np.random.default_rng(3)
+    weights = mgnns_init(cfg, num_edges=num_edges,
+                         label_embedding=r.standard_normal((7, 300)).astype(np.float32),
+                         object_A=object_A, place_A=place_A,
+                         object_inp=r.standard_normal((80, 300)).astype(np.float32),
+                         place_inp=r.standard_normal((365, 300)).astype(np.float32),
+                         seed=3, device="cpu")
+    one = {k: torch.from_numpy(v[:1]) for k, v in batch_np.items()}
+    label, weight = torch.tensor([2]), torch.ones(1)
+
+    def trunk_grads(dev):
+        params, stats, consts = (tree_to(t, torch.device(dev)) for t in weights)
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        tree = tree_unflatten(params, live)
+        logits = mgnns_apply(tree, stats, consts, {k: v.to(dev) for k, v in one.items()},
+                             cfg=cfg, train=True)[0]
+        loss = cross_entropy(logits, label.to(dev), weight.to(dev))
+        trunk = tree_leaves({k: tree[k] for k in ("object_trunk", "place_trunk")})
+        return [g.cpu().double() for g in torch.autograd.grad(loss, trunk)]
+
+    host = trunk_grads("cpu")
+    norm = float(torch.sqrt(sum((g ** 2).sum() for g in host)))
+    scale = max(float(g.abs().max()) for g in host)
+    errs = {}
+    for label_ in ("pinned", "unpinned TF32"):
+        with tf32_unpinned() if label_ == "unpinned TF32" else contextlib.nullcontext():
+            card = trunk_grads("cuda")
+        if not all(torch.isfinite(g).all() for g in card):
+            raise SystemExit(f"phase 3: non-finite trunk gradients on the card ({label_})")
+        fro = float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(card, host)))) / norm
+        mx = max(float((a - b).abs().max()) for a, b in zip(card, host)) / scale
+        errs[label_] = fro
+        log(f"phase 3: trunk gradients of a 1-record step card vs CPU ({len(host)} leaves), "
+            f"{label_}: Frobenius |diff| / |CPU| {fro}, max |diff| / scale {mx}")
+    if errs["pinned"] > 5e-3 or not errs["unpinned TF32"] > errs["pinned"]:
+        raise SystemExit("phase 3: the card's trunk gradients disagree with the CPU's, or the "
+                         "TF32 backward is no further from them")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -560,7 +661,7 @@ def profile_train_step(engine: Engine, batch: dict) -> None:
         f"{split}; {card_line()}")
 
 
-def phase4(setup: dict, k1: dict, k2: dict) -> None:
+def phase4(setup: dict, k1: dict, k2: dict) -> dict:
     cfg = setup["cfg"]
     vocab, graph, texts, r = setup["vocab"], setup["graph"], setup["texts"], np.random.default_rng(4)
     params, stats, consts = mgnns_init(
@@ -730,6 +831,211 @@ def phase4(setup: dict, k1: dict, k2: dict) -> None:
         f"{block_losses}; {card_line()}")
     if abs(block_losses["block"] - block_losses["none"]) > 1e-5 * abs(block_losses["none"]):
         raise SystemExit("phase 4: the block-remat step disagrees with the plain step")
+    return {"engine": engine, "batch": batch, "consts": consts, "cfg": cfg}
+
+
+# ----------------------------------------------------------------- phase 4b
+
+
+def phase4b(p4: dict) -> None:
+    engine, batch, consts, cfg = p4["engine"], p4["batch"], p4["consts"], p4["cfg"]
+    cfgs = {"float32": cfg, "bfloat16": dataclasses.replace(cfg, compute_dtype="bfloat16")}
+    dev_batch = engine._to_device(batch)
+
+    # bf16 against float32 logits, eval mode, on phase 4's trained weights: the
+    # 16-record batch on the card, and its first record on the card and on the
+    # CPU, whose bf16 path the CPU tests hold to the JAX package's
+    def drift(batch_, params, stats, consts_):
+        with torch.inference_mode():
+            lg = {dt: mgnns_apply(params, stats, consts_, batch_, cfg=c)[0].float()
+                  for dt, c in cfgs.items()}
+        ok = bool(torch.isfinite(lg["bfloat16"]).all())
+        return ok, float((lg["bfloat16"] - lg["float32"]).abs().max() / lg["float32"].abs().max())
+
+    cpu = torch.device("cpu")
+    ok16, d16 = drift(dev_batch, engine.params, engine.batch_stats, consts)
+    one = {k: v[:1] for k, v in dev_batch.items()}
+    ok1, d_card = drift(one, engine.params, engine.batch_stats, consts)
+    _, d_cpu = drift({k: v.cpu() for k, v in one.items()}, tree_to(engine.params, cpu),
+                     tree_to(engine.batch_stats, cpu), tree_to(consts, cpu))
+    log(f"phase 4b: eval logits, bf16 trunks vs float32, max |diff| / scale: 16 records on the "
+        f"card {d16} (tolerance 4e-2, the JAX package's bf16 bound); 1 record on the card "
+        f"{d_card}, on the CPU {d_cpu} (tolerance for the card: twice the CPU's)")
+    if not (ok16 and ok1) or d16 > 4e-2 or d_card > 2 * d_cpu:
+        raise SystemExit("phase 4b: bf16 logits are not finite, too far from float32, or "
+                         "further from it on the card than twice the CPU's drift")
+
+    # one bf16 train step's loss and gradients
+    leaves = tree_leaves(engine.params)
+    live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
+    tree = tree_unflatten(engine.params, live)
+    out, _, aux = mgnns_apply(tree, engine.batch_stats, consts, dev_batch, cfg=cfgs["bfloat16"],
+                              train=True, generator=torch.Generator(device="cuda").manual_seed(0))
+    loss = cross_entropy(out, dev_batch["label"], dev_batch["weight"])
+    want = [p for p in live if p.requires_grad]
+    grads = torch.autograd.grad(loss, want, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(want, grads)]
+    trunk_ids = {id(t) for t in tree_leaves({k: tree[k] for k in ("object_trunk", "place_trunk")})}
+    trunk_sum = sum(float(g.abs().sum()) for p, g in zip(want, grads) if id(p) in trunk_ids)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    dtypes = {str(t.dtype) for t in want} | {str(g.dtype) for g in grads}
+    log(f"phase 4b: one bf16 train step: loss {float(loss)}, {len(grads)} gradients all finite "
+        f"{finite}, parameter and gradient dtypes {sorted(dtypes)}, trunk gradient |sum| "
+        f"{trunk_sum}")
+    if not (math.isfinite(float(loss)) and finite and dtypes == {"torch.float32"}
+            and trunk_sum > 0):
+        raise SystemExit("phase 4b: the bf16 train step is not finite, not float32 or has no "
+                         "trunk gradient")
+
+    # train step ms of each dtype in turns, after two warm-up steps each
+    applies = {}
+    for dt, c in cfgs.items():
+        def apply_dt(p, bs, b, *, train, generator, c=c):
+            lg, nbs, ax = mgnns_apply(p, bs, consts, b, cfg=c, train=train, generator=generator)
+            return lg, nbs, ax.get("head_diversity", 0.0)
+        applies[dt] = apply_dt
+    cm = confusion_init(len(LABELS), "cuda")
+    step_ms: dict = {dt: [] for dt in cfgs}
+    order = ("float32", "bfloat16") * 2 + ("float32", "bfloat16", "bfloat16", "float32") * 2
+    for i, dt in enumerate(order):
+        engine.apply_fn = applies[dt]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.train_step(batch, cm)
+        torch.cuda.synchronize()
+        if i >= 4:
+            step_ms[dt].append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 4b: 16-record train step ms (host clock, in turns after two warm-up steps each): "
+        f"float32 {step_ms['float32']} (median {statistics.median(step_ms['float32'])}), bf16 "
+        f"{step_ms['bfloat16']} (median {statistics.median(step_ms['bfloat16'])}); {card_line()}")
+
+    # peak memory of one forward/backward of each (phase 4's method)
+    peaks = {}
+    for dt in cfgs:
+        def fb_apply(p, bs, b, *, train, generator, dt=dt):
+            return (*mgnns_apply(p, bs, consts, b, cfg=cfgs[dt], train=train,
+                                 generator=generator)[:2], 0.0)
+
+        peng = Engine(fb_apply, engine.params, engine.batch_stats, num_classes=len(LABELS),
+                      eval_only=True, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _loss_and_text_grads(peng, batch, seed=5)
+        torch.cuda.synchronize()
+        peaks[dt] = torch.cuda.max_memory_allocated()
+    log(f"phase 4b: one 16-record forward/backward, peak device memory float32 "
+        f"{peaks['float32']} bytes, bf16 {peaks['bfloat16']} bytes; {card_line()}")
+
+    # kernel ms of the trunk ranges (their forward kernels) and the step's
+    # device busy time, from one profiled train step of each
+    from torch.profiler import ProfilerActivity, profile
+
+    for dt in cfgs:
+        engine.apply_fn = applies[dt]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.train_step(batch, cm)
+            torch.cuda.synchronize()
+        ranges = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                  if e.key in ("mgnns.object_channel", "mgnns.place_channel")
+                  and e.device_type != torch.autograd.DeviceType.CUDA}
+        kernels = device_kernels(prof)
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:3]
+        log(f"phase 4b: {dt} train step, profiled: forward kernel ms of the trunk ranges {ranges}; "
+            f"device busy {busy} ms over {sum(e.count for e in kernels)} launches; top kernels "
+            f"{[(e.key[:60], e.self_device_time_total / 1e3) for e in top]}")
+    engine.apply_fn = applies["float32"]
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+def cli_tree(root: str) -> None:
+    """A 3-class data tree whose words separate the classes (as
+    tests/test_mvsa.py builds it), seeded GloVe pickles, and the adjacency
+    pickles and vocabulary written by the port's ``prepare``."""
+    from mgnns_tpu_torch.cli import prepare
+
+    r = np.random.default_rng(0)
+    pools = {"negative": ["bad", "sad", "awful", "hate", "terrible"],
+             "neutral": ["table", "walk", "city", "day", "photo"],
+             "positive": ["good", "great", "happy", "love", "wonderful"]}
+    os.makedirs(os.path.join(root, "all_anno_json"))
+    os.makedirs(os.path.join(root, "glove"))
+    with open(os.path.join(root, "label.json"), "w") as f:
+        json.dump({name: i for i, name in enumerate(pools)}, f)
+    rows = []
+    for i in range(90):
+        label = list(pools)[i % 3]
+        words = list(r.choice(pools[label], 5)) + list(r.choice(pools["neutral"], 2))
+        rows.append({"id": f"c{i}", "text": " ".join(words), "image": f"img/{i}.jpg",
+                     "label": label, "objects": [int(x) for x in r.integers(0, 80, 3)],
+                     "places": [int(x) for x in r.integers(0, 365, 2)]})
+    for phase in ("train", "val", "test"):
+        with open(os.path.join(root, "all_anno_json", f"{phase}_all_anno.json"), "w") as f:
+            f.writelines(json.dumps(rec) + "\n" for rec in rows)
+    for rel, shape in (("glove/object_glove_word2vec.pkl", (80, 300)),
+                       ("glove/place_glove_word2vec.pkl", (365, 300)),
+                       ("tumblr_label_glove.pkl", (3, 300))):
+        with open(os.path.join(root, rel), "wb") as f:
+            pickle.dump(r.standard_normal(shape).astype(np.float32), f)
+    for key, n, name in (("objects", 80, "tumblr_objects_adj.pkl"),
+                         ("places", 365, "tumblr_resnet50_places_adj.pkl")):
+        prepare.main(["adj", "--data_root_path", root, "--key", key, "--num_classes", str(n),
+                      "--output", os.path.join(root, "adj", name)])
+    prepare.main(["vocab", "--data_root_path", root, "--text_min_count", "1"])
+
+
+def run_cli(root: str, name: str, extra: list[str], forwards: int, steps: int) -> dict:
+    """``mgnns_tpu_torch.cli.main.main`` in this process with the kernels'
+    launch counts set to 0 just before; fails unless K1 launched once per
+    forward and K2 once per train step."""
+    from mgnns_tpu_torch.cli import main as cli_main
+
+    out = os.path.join(root, name)
+    argv = ["--data_root_path", root, "--num_labels", "3", "--text_min_count", "1", "-e",
+            "--save_model_path", os.path.join(out, "ckpt"),
+            "--save_experiment_result_path", os.path.join(out, "exp"),
+            "--save_pred_result_path", os.path.join(out, "pred"),
+            "--metrics_path", os.path.join(out, "metrics.jsonl")] + extra
+    edge_max.launches = edge_max.bwd_launches = 0
+    t0 = time.perf_counter()
+    res = cli_main.main(argv)
+    torch.cuda.synchronize()
+    launches, bwd = edge_max.launches, edge_max.bwd_launches
+    hist = res["history"]
+    log(f"phase 5: CLI {name} ({' '.join(extra)}): {time.perf_counter() - t0} s; train loss "
+        f"{[h['train']['loss'] for h in hist]}, val loss {[h['val']['loss'] for h in hist]}, "
+        f"best val acc {res['best_val_accuracy']}, test acc {res['test']['accuracy']}; K1 "
+        f"launches {launches} for {forwards} forwards, K2 {bwd} for {steps} train steps; "
+        f"{card_line()}")
+    if (launches, bwd) != (forwards, steps):
+        raise SystemExit(f"phase 5: CLI {name}: kernel launch counts do not match the run")
+    losses = [h["train"]["loss"] for h in hist] + [h["val"]["loss"] for h in hist]
+    if not all(math.isfinite(v) for v in losses + [res["test"]["loss"]]):
+        raise SystemExit(f"phase 5: CLI {name}: a non-finite loss")
+    files = [os.path.join(out, "metrics.jsonl"),
+             os.path.join(out, "ckpt", "mgnns_tpu", "preproc.json"),
+             os.path.join(out, "ckpt", "mgnns_tpu", "preproc.npz")]
+    files += [os.path.join(d, f) for kind in ("exp", "pred")
+              for d, _, fs in os.walk(os.path.join(out, kind)) for f in fs]
+    if len(files) != 5 or not all(os.path.getsize(f) for f in files):
+        raise SystemExit(f"phase 5: CLI {name}: result, metrics or preproc files missing: {files}")
+    return res
+
+
+def phase5() -> None:
+    root = tempfile.mkdtemp(prefix="mgnns_cli_")
+    cli_tree(root)
+    # 90 records in batches of 30: 3 train steps and 3 val forwards an epoch,
+    # 3 test forwards after
+    res = run_cli(root, "text", ["--text_only", "--epochs", "6", "-b", "30", "--lr", "5e-2"],
+                  forwards=6 * 6 + 3, steps=6 * 3)
+    if not (res["best_val_accuracy"] > 0.8 and res["test"]["accuracy"] > 0.8):
+        raise SystemExit("phase 5: the text-only CLI run did not learn the separable corpus")
+    # the fusion model at full width, bf16 trunks: 32 records in batches of 16
+    run_cli(root, "fusion_bf16", ["--compute_dtype", "bfloat16", "--limit_samples", "32",
+                                  "--epochs", "1", "-b", "16"], forwards=2 + 2 + 2, steps=2)
 
 
 def main() -> int:
@@ -740,10 +1046,13 @@ def main() -> int:
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     log(f"phase 0: {card_line()}; torch {torch.__version__} CUDA {torch.version.cuda}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log(f"phase 0: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-        f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    log(f"phase 0: torch's global flags, left as found: torch.backends.cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32} torch.backends.cudnn.conv.fp32_precision="
+        f"{torch.backends.cudnn.conv.fp32_precision!r} torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()!r}; the package pins "
+        f"torch.backends.cudnn.conv.fp32_precision='ieee' inside each float32 trunk conv, "
+        f"forward and backward (mgnns_tpu_torch/nn/resnet.py: ieee_float32_convs)")
 
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -764,7 +1073,9 @@ def main() -> int:
     k1 = phase2_k1()
     k2 = phase2b_k2()
     setup = phase3(k1)
-    phase4(setup, k1, k2)
+    p4 = phase4(setup, k1, k2)
+    phase4b(p4)
+    phase5()
 
     log(f"total {time.perf_counter() - t_start} s")
     log(card_line())

@@ -1,8 +1,9 @@
 """Typed configuration, copied from the JAX package's ``mgnns_tpu/config.py``.
 
 Field names and defaults are the JAX package's, so one configuration drives
-both.  The port computes in float32 only: ``compute_dtype="bfloat16"`` raises
-until the bf16 slice lands (``ROADMAP.md``, queue 1).  ``bn_mode``,
+both.  ``compute_dtype`` is ``"float32"`` or ``"bfloat16"``; as in the JAX
+package, bf16 reaches the ResNet trunks and the image normalization only
+(:mod:`mgnns_tpu_torch.nn.resnet`), and parameters stay float32.  ``bn_mode``,
 ``remat_trunks``, ``remat_policy`` and ``freeze_trunks`` act in training as
 in the JAX package.  ``unroll_trunks`` and ``stem_s2d`` only change how XLA
 lowers the trunks there, not the maths, and are accepted and ignored.
@@ -13,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,11 +74,7 @@ class ModelConfig:
     stem_s2d: bool = False
 
     def __post_init__(self):
-        if self.compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet: the bf16 autocast "
-                "slice is queued in ROADMAP.md (queue 1, item 3)")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
 
     @property
@@ -84,7 +83,7 @@ class ModelConfig:
 
     @property
     def cdtype(self) -> torch.dtype:
-        return torch.float32
+        return _DTYPES[self.compute_dtype]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,6 +55,16 @@ class PmiGraph:
     def num_edges(self) -> int:
         return int(self.keys.shape[0]) + 1
 
+    def initial_edge_weights(self, trainable_init_one: bool = True) -> np.ndarray:
+        """Edge-weight table [num_edges, 1]: all ones (reference
+        ``models/Text_GCN.py:68``), or else the PMI values with 0.0 at the
+        reserved slot (``:72``, ``utils/pmi.py:89``)."""
+        if trainable_init_one:
+            return np.ones((self.num_edges, 1), dtype=np.float32)
+        w = np.zeros((self.num_edges, 1), dtype=np.float32)
+        w[1:, 0] = self.pmi
+        return w
+
     def lookup(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
         """Edge ids for (src, dst) word-id pairs; 0 where no edge exists.
 

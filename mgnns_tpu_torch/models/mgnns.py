@@ -36,20 +36,22 @@ from mgnns_tpu_torch.nn import attention, image_gcn, lstm, resnet, text_gcn
 from mgnns_tpu_torch.nn.core import (
     RngStream, as_param, dropout, embedding, embedding_init, leaky_relu, linear, linear_init,
 )
-from mgnns_tpu_torch.utils import resolve_device
+from mgnns_tpu_torch.utils import resolve_device, tree_to
 
 # ImageNet statistics (reference Multi_GCN_Multihead_att.py:350-351)
 _IMAGE_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 _IMAGE_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
-def normalize_image_batch(x: torch.Tensor) -> torch.Tensor:
-    """On-device ImageNet normalization of raw uint8 pixels [B, H, W, 3];
-    float inputs are taken as already normalized and pass through."""
+def normalize_image_batch(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """On-device ImageNet normalization of raw uint8 pixels [B, H, W, 3] in
+    ``dtype``, each operation rounded to it as in the JAX package
+    (``mgnns_tpu/models/mgnns.py:61-71``); float inputs are taken as already
+    normalized and pass through."""
     if x.dtype == torch.uint8:
         scale = torch.tensor((1.0 / (255.0 * _IMAGE_STD)).astype(np.float32), device=x.device)
         bias = torch.tensor((-_IMAGE_MEAN / _IMAGE_STD).astype(np.float32), device=x.device)
-        return x.float() * scale + bias
+        return x.to(dtype) * scale.to(dtype) + bias.to(dtype)
     return x
 
 
@@ -62,29 +64,53 @@ def mgnns_init(
     place_A: np.ndarray,
     object_inp: np.ndarray,
     place_inp: np.ndarray,
+    vocab_embedding: np.ndarray | None = None,
+    node_embedding: np.ndarray | None = None,
+    edge_weights: np.ndarray | None = None,
+    object_trunk: tuple[dict, dict] | None = None,
+    place_trunk: tuple[dict, dict] | None = None,
+    include_dead_modules: bool = False,
     seed: int = 0,
     device="cuda",
 ) -> tuple[dict, dict, dict]:
     """Build (params, batch_stats, consts) on ``device`` from a
-    ``torch.Generator`` seeded with ``seed``; the shapes are the JAX
-    package's ``mgnns_init``.
+    ``torch.Generator`` seeded with ``seed``; the shapes and options are the
+    JAX package's ``mgnns_init`` (``mgnns_tpu/models/mgnns.py:74-128``).  A
+    given table or trunk is used instead of a random one, and the draws of
+    the parameters after it then shift.
 
     Args:
       num_edges: PMI edge-table size (``PmiGraph.num_edges``).
       label_embedding: [num_labels, 300] label GloVe.
       object_A / place_A: outputs of :func:`mgnns_tpu_torch.graphs.cooccur.gen_A`.
       object_inp / place_inp: [C, 300] object / place GloVe inputs.
+      vocab_embedding: optional [V, 300] GloVe for the sequence embedding.
+      node_embedding: optional [V, 300] GloVe for the text-GCN nodes.
+      edge_weights: optional [E, 1] text-GCN edge-weight table
+        (``PmiGraph.initial_edge_weights``).
+      object_trunk / place_trunk: optional (params, stats) trunks
+        (:func:`mgnns_tpu_torch.nn.resnet.import_torch_state_dict`).
+      include_dead_modules: not ported; raises ``NotImplementedError``.
     """
-    g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    if include_dead_modules:
+        raise NotImplementedError(
+            "include_dead_modules (the reference modules its forward never runs) waits for "
+            "checkpoint interop, ROADMAP.md queue 1 item 3")
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.bi_hidden_size
     s: dict = {}
     p: dict = {
-        "text_gcn": text_gcn.text_gcn_init(g, cfg.vocab_size, cfg.emb_size, num_edges),
-        "embedding": embedding_init(g, cfg.vocab_size, cfg.emb_size),
+        "text_gcn": text_gcn.text_gcn_init(g, cfg.vocab_size, cfg.emb_size, num_edges,
+                                           node_weights=node_embedding,
+                                           edge_weights=edge_weights),
+        "embedding": embedding_init(g, cfg.vocab_size, cfg.emb_size, weights=vocab_embedding),
         "lstm": lstm.lstm_init(g, cfg.emb_size, cfg.hidden_size, cfg.num_layers, cfg.bidirectional),
     }
-    p["object_trunk"], s["object_trunk"] = resnet.resnet_init(g, depth=101)
-    p["place_trunk"], s["place_trunk"] = resnet.resnet_init(g, depth=50)
+    for side, trunk, depth in (("object", object_trunk, 101), ("place", place_trunk, 50)):
+        if trunk is None:
+            trunk = resnet.resnet_init(g, depth=depth)
+        p[f"{side}_trunk"], s[f"{side}_trunk"] = tree_to(trunk, dev)
     p.update({
         "liner_img_object": linear_init(g, 2048, d),
         "liner_img_place": linear_init(g, 2048, d),
@@ -123,7 +149,8 @@ def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.T
     block_remat = cfg.remat_policy == "block"
 
     def trunk_fn(img):
-        return resnet.resnet_apply(trunk_p, trunk_s, img, train=bn_train, block_remat=block_remat)
+        return resnet.resnet_apply(trunk_p, trunk_s, img, train=bn_train, block_remat=block_remat,
+                                   dtype=cfg.cdtype)
 
     if cfg.freeze_trunks:
         # feature extraction: no trunk backward and the old statistics, as
@@ -137,6 +164,7 @@ def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.T
         feats, new_stats = checkpoint(trunk_fn, image, use_reentrant=False)
     else:
         feats, new_stats = trunk_fn(image)                          # [B, h, w, 2048]
+    feats = feats.float()  # the heads run in float32 (the JAX package's feats32)
     B, H, W, C = feats.shape
     memory_bank = linear(params[f"liner_img_{side}"], feats.reshape(B, H * W, C))
     pooled = feats.amax(dim=(1, 2))                                 # [B, 2048]
@@ -185,7 +213,7 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
             params["lstm"], emb, batch["lens"], dropout_rate=cfg.dropout, train=train,
             generator=rngs.next("lstm"))                            # [B, L, 300]
 
-    image = normalize_image_batch(batch["image"])
+    image = normalize_image_batch(batch["image"], cfg.cdtype)
     with record_function("mgnns.object_channel"):
         obj_bank, obj_vec, new_stats["object_trunk"] = _image_channel(
             params, batch_stats, consts, image, side="object", cfg=cfg, train=train, rngs=rngs)

@@ -7,6 +7,7 @@ Port of the JAX package's ``mgnns_tpu/models/text_only.py`` (the reference's
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mgnns_tpu_torch.nn import text_gcn
@@ -21,13 +22,18 @@ def text_model_init(
     *,
     seed: int = 0,
     hidden_size: int = 300,
+    node_embedding: np.ndarray | None = None,
+    edge_weights: np.ndarray | None = None,
     device="cuda",
 ) -> dict:
     """Parameters drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (raises when that is CUDA and no card is present)."""
+    ``device`` (raises when that is CUDA and no card is present).
+    ``node_embedding`` [V, D] and ``edge_weights`` [E, 1] replace the random
+    node table and the all-ones edge table, as in the JAX package."""
     g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     return {
-        "text_gcn": text_gcn.text_gcn_init(g, vocab_size, hidden_size, num_edges),
+        "text_gcn": text_gcn.text_gcn_init(g, vocab_size, hidden_size, num_edges,
+                                           node_weights=node_embedding, edge_weights=edge_weights),
         "head": linear_init(g, hidden_size, num_labels),
     }
 

@@ -99,9 +99,17 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 # Embedding
 
 
-def embedding_init(g: torch.Generator, vocab_size: int, dim: int, padding_idx: int = 0) -> dict:
-    """N(0,1) like ``nn.Embedding``, with the padding row zeroed."""
-    table = normal(g, (vocab_size, dim))
+def embedding_init(g: torch.Generator, vocab_size: int, dim: int, padding_idx: int = 0,
+                   weights: np.ndarray | None = None) -> dict:
+    """N(0,1) like ``nn.Embedding``, or a copy of a pretrained ``weights``
+    matrix [vocab_size, dim]; the padding row is zeroed either way."""
+    if weights is None:
+        table = normal(g, (vocab_size, dim))
+    else:
+        table = as_param(weights, g)
+        if table.shape != (vocab_size, dim):
+            raise ValueError(f"embedding weights of shape {tuple(table.shape)}, "
+                             f"expected {(vocab_size, dim)}")
     table[padding_idx] = 0.0
     return {"table": table}
 

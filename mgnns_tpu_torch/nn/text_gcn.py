@@ -9,17 +9,24 @@ its positions, summed over words, then dropout and ReLU (reference
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mgnns_tpu_torch.kernels import edge_max
-from mgnns_tpu_torch.nn.core import dropout, embedding, normal
+from mgnns_tpu_torch.nn.core import as_param, dropout, embedding, normal
 
 
-def text_gcn_init(g: torch.Generator, vocab_size: int, hidden_size: int, num_edges: int) -> dict:
-    """N(0,1) node embeddings [V, D] and an all-ones [E, 1] edge-weight
-    table (the reference's trainable_edges=True)."""
-    return {"node_embedding": normal(g, (vocab_size, hidden_size)),
-            "edge_weight": torch.ones((num_edges, 1), device=g.device)}
+def text_gcn_init(g: torch.Generator, vocab_size: int, hidden_size: int, num_edges: int,
+                  node_weights: np.ndarray | None = None,
+                  edge_weights: np.ndarray | None = None) -> dict:
+    """Node embeddings [V, D], N(0,1) or a copy of ``node_weights`` (the
+    reference's GloVe, ``models/Text_GCN.py:76``), and an [E, 1] edge-weight
+    table, all ones (the reference's trainable_edges=True, ``:68``) or a copy
+    of ``edge_weights``."""
+    node = normal(g, (vocab_size, hidden_size)) if node_weights is None else as_param(node_weights, g)
+    edge = (torch.ones((num_edges, 1), device=g.device) if edge_weights is None
+            else as_param(edge_weights, g))
+    return {"node_embedding": node, "edge_weight": edge}
 
 
 def unique_word_readout(

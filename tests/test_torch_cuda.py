@@ -1,6 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version, a
-forward and a train step on the card against the same on the CPU, and the
-kernels' launch counts across a train epoch.
+forward and a train step on the card against the same on the CPU, the
+kernels' launch counts across a train epoch, a ResNet trunk on the card
+against the CPU under the package's pinned float32 conv precision, and the
+fusion model at bf16 against float32.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 those are absent: ``python -m pytest --noconftest tests/test_torch_cuda.py``
@@ -55,9 +57,10 @@ K2_SHAPES = [(16, 100, 300, 4), (3, 7, 5, 2), (4, 20, 64, 0), (4, 20, 64, 1), (4
 
 
 # K1's cases: K2's shapes (D = 5 and 33 take the scalar path), more
-# documents than a warp's lanes (K1 orders its blocks by a warp scan of lens),
-# and one whose emb lies 4 bytes past a 16-byte boundary, so that D % 4 == 0
-# takes the scalar path too
+# documents than a warp has lanes (the grid's document axis past 32, with
+# short documents whose chunks are mostly past their length), and one whose
+# emb lies 4 bytes past a 16-byte boundary, so that D % 4 == 0 takes the
+# scalar path too
 K1_CASES = [pytest.param(shape, False, id=f"shape{i}") for i, shape in enumerate(K2_SHAPES)] + [
     pytest.param((40, 9, 8, 1), False, id="many-documents"),
     pytest.param((4, 20, 64, 4), True, id="unaligned")]
@@ -195,3 +198,69 @@ def test_launch_counts_across_train_epoch(cuda_device):
     out = engine.train_epoch(batches)
     assert out["skipped_steps"] == 0
     assert (edge_max.launches, edge_max.bwd_launches) == (len(batches), len(batches))
+
+
+def _small_fusion(device):
+    """A fusion model at 64 px with small vocabulary and label graphs, its
+    weights made on the CPU, and a 2-record batch of uint8 pixels."""
+    from mgnns_tpu_torch.config import ModelConfig
+    from mgnns_tpu_torch.models.mgnns import mgnns_init
+
+    r = np.random.default_rng(0)
+    cfg = ModelConfig(vocab_size=50, edges_num=30, image_size=64, object_num_classes=4,
+                      place_num_classes=5)
+    params, stats, consts = mgnns_init(
+        cfg, num_edges=30, label_embedding=r.standard_normal((7, 300)), object_A=np.eye(4),
+        place_A=np.eye(5), object_inp=r.standard_normal((4, 300)),
+        place_inp=r.standard_normal((5, 300)), device="cpu")
+    B, L = 2, 6
+    batch = {"ids": r.integers(1, 50, (B, L)).astype(np.int32),
+             "lens": np.full((B,), L, np.int32), "mask": np.ones((B, L), np.float32),
+             "eids": r.integers(0, 30, (B, L, 9)).astype(np.int32),
+             "image": r.integers(0, 256, (B, 64, 64, 3)).astype(np.uint8)}
+    return (cfg, *(tree_to(t, device) for t in (params, stats, consts)),
+            {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+
+
+@pytest.mark.cuda
+def test_fusion_bf16_forward_near_float32(cuda_device):
+    """The fusion forward with bf16 trunks on the card: finite, within the
+    JAX package's bf16 bound of 4e-2 of scale of the float32 forward."""
+    import dataclasses
+
+    from mgnns_tpu_torch.models.mgnns import mgnns_apply
+
+    cfg, params, stats, consts, batch = _small_fusion(cuda_device)
+    with torch.inference_mode():
+        f32 = mgnns_apply(params, stats, consts, batch, cfg=cfg)[0]
+        bf16 = mgnns_apply(params, stats, consts, batch,
+                           cfg=dataclasses.replace(cfg, compute_dtype="bfloat16"))[0]
+    assert bf16.dtype == torch.float32 and torch.isfinite(bf16).all()
+    drift = float((bf16 - f32).abs().max() / f32.abs().max())
+    assert 0 < drift <= 4e-2, drift
+
+
+@pytest.mark.cuda
+def test_trunk_forward_on_card_matches_cpu_under_the_pin(cuda_device, monkeypatch):
+    """A ResNet-50 trunk at 64 px on the card against the CPU, with torch's
+    global flags as they are (TF32 allowed for cuDNN convolutions by
+    default): within 1e-4 of scale under the package's pin, and closer than
+    the same forward with the pin removed."""
+    import contextlib
+
+    from mgnns_tpu_torch.nn import resnet
+
+    g = torch.Generator().manual_seed(0)
+    params, stats = resnet.resnet_init(g, depth=50)
+    x = torch.randn(2, 64, 64, 3, generator=g)
+    want = resnet.resnet_apply(params, stats, x)[0]
+    on_card = [tree_to(t, cuda_device) for t in (params, stats, x)]
+    errs = []
+    for pinned in (True, False):
+        if not pinned:
+            monkeypatch.setattr(resnet, "ieee_float32_convs", contextlib.nullcontext)
+            monkeypatch.setattr(torch.backends.cudnn.conv, "fp32_precision", "tf32")
+        with torch.inference_mode():
+            got = resnet.resnet_apply(*on_card[:2], on_card[2])[0].cpu()
+        errs.append(float((got - want).abs().max() / want.abs().max()))
+    assert errs[0] <= 1e-4 and errs[0] < errs[1], errs

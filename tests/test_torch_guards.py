@@ -111,11 +111,35 @@ def test_constructors_default_to_cuda_and_raise_without_it(no_cuda, entry):
             convert.to_torch({"w": np.zeros(3)})
 
 
-def test_bfloat16_config_raises():
+def test_bfloat16_config_is_accepted_with_float32_parameters():
+    from mgnns_tpu_torch.config import ModelConfig
+    from mgnns_tpu_torch.models.mgnns import mgnns_init
+    from mgnns_tpu_torch.utils import tree_leaves
+
+    cfg = ModelConfig(compute_dtype="bfloat16", vocab_size=5, object_num_classes=2,
+                      place_num_classes=3)
+    assert cfg.cdtype == torch.bfloat16
+    assert ModelConfig().cdtype == torch.float32
+    z2, z3 = np.eye(2), np.eye(3)
+    params, stats, consts = mgnns_init(cfg, num_edges=2, label_embedding=np.zeros((7, 300)),
+                                       object_A=z2, place_A=z3, object_inp=np.zeros((2, 300)),
+                                       place_inp=np.zeros((3, 300)), device="cpu")
+    assert {t.dtype for t in tree_leaves((params, stats, consts))} == {torch.float32}
+
+
+def test_unknown_compute_dtype_raises():
     from mgnns_tpu_torch.config import ModelConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelConfig(compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="float16"):
+        ModelConfig(compute_dtype="float16")
+
+
+def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
+    """The training CLI runs on the card unless given --platform cpu."""
+    from mgnns_tpu_torch.cli.main import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--data_root_path", str(tmp_path), "--text_only"])
 
 
 @pytest.mark.parametrize("entry", ["engine", "loader", "checkpoint_restore"])
