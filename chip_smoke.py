@@ -51,7 +51,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    prepare``); ``mgnns_tpu_torch.cli.main`` trains the text-only model to
    above 0.8 validation and test accuracy, and the full-width fusion model
    at bf16 for one epoch, with K1 launched once per forward and K2 once per
-   train step, and the result, metrics and preprocessing files written.
+   train step, and the result, metrics and preprocessing files written;
+6. serving what phase 5 wrote, on the card: ``Predictor.from_engine_artifacts``
+   of the text-only and the fusion checkpoint (float32) answers a 37-record
+   request with K1 once per forward, the fusion answer held against K1's
+   plain version; ``mgnns_tpu_torch.cli.predict`` on the same records equals
+   it; a full-width fusion model with its dead modules exported as a
+   reference ``.pth.tar`` wrapper serves bit-equal probabilities through
+   ``reference_ckpt``, and ``cli.main --init_from_reference`` trains from it
+   (K1 and K2 counted); ``BatchingFrontend`` under 8 clients x 4 requests
+   equals direct ``predict``; ``cli.serve.make_server`` answers ``/healthz``,
+   ``/predict`` and a 404 over loopback.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -986,7 +996,8 @@ def cli_tree(root: str) -> None:
     prepare.main(["vocab", "--data_root_path", root, "--text_min_count", "1"])
 
 
-def run_cli(root: str, name: str, extra: list[str], forwards: int, steps: int) -> dict:
+def run_cli(root: str, name: str, extra: list[str], forwards: int, steps: int,
+            phase: str = "phase 5") -> dict:
     """``mgnns_tpu_torch.cli.main.main`` in this process with the kernels'
     launch counts set to 0 just before; fails unless K1 launched once per
     forward and K2 once per train step."""
@@ -1004,27 +1015,27 @@ def run_cli(root: str, name: str, extra: list[str], forwards: int, steps: int) -
     torch.cuda.synchronize()
     launches, bwd = edge_max.launches, edge_max.bwd_launches
     hist = res["history"]
-    log(f"phase 5: CLI {name} ({' '.join(extra)}): {time.perf_counter() - t0} s; train loss "
+    log(f"{phase}: CLI {name} ({' '.join(extra)}): {time.perf_counter() - t0} s; train loss "
         f"{[h['train']['loss'] for h in hist]}, val loss {[h['val']['loss'] for h in hist]}, "
         f"best val acc {res['best_val_accuracy']}, test acc {res['test']['accuracy']}; K1 "
         f"launches {launches} for {forwards} forwards, K2 {bwd} for {steps} train steps; "
         f"{card_line()}")
     if (launches, bwd) != (forwards, steps):
-        raise SystemExit(f"phase 5: CLI {name}: kernel launch counts do not match the run")
+        raise SystemExit(f"{phase}: CLI {name}: kernel launch counts do not match the run")
     losses = [h["train"]["loss"] for h in hist] + [h["val"]["loss"] for h in hist]
     if not all(math.isfinite(v) for v in losses + [res["test"]["loss"]]):
-        raise SystemExit(f"phase 5: CLI {name}: a non-finite loss")
+        raise SystemExit(f"{phase}: CLI {name}: a non-finite loss")
     files = [os.path.join(out, "metrics.jsonl"),
              os.path.join(out, "ckpt", "mgnns_tpu", "preproc.json"),
              os.path.join(out, "ckpt", "mgnns_tpu", "preproc.npz")]
     files += [os.path.join(d, f) for kind in ("exp", "pred")
               for d, _, fs in os.walk(os.path.join(out, kind)) for f in fs]
     if len(files) != 5 or not all(os.path.getsize(f) for f in files):
-        raise SystemExit(f"phase 5: CLI {name}: result, metrics or preproc files missing: {files}")
+        raise SystemExit(f"{phase}: CLI {name}: result, metrics or preproc files missing: {files}")
     return res
 
 
-def phase5() -> None:
+def phase5() -> str:
     root = tempfile.mkdtemp(prefix="mgnns_cli_")
     cli_tree(root)
     # 90 records in batches of 30: 3 train steps and 3 val forwards an epoch,
@@ -1036,6 +1047,215 @@ def phase5() -> None:
     # the fusion model at full width, bf16 trunks: 32 records in batches of 16
     run_cli(root, "fusion_bf16", ["--compute_dtype", "bfloat16", "--limit_samples", "32",
                                   "--epochs", "1", "-b", "16"], forwards=2 + 2 + 2, steps=2)
+    return root
+
+
+# ------------------------------------------------------------------ phase 6
+
+REQUEST = 37
+
+
+def _check_answers(label: str, got: list[dict], want: list[dict], atol: float) -> float:
+    """Labels equal and probabilities within ``atol``; returns the max |diff|."""
+    if [g["label"] for g in got] != [w["label"] for w in want]:
+        raise SystemExit(f"phase 6: {label}: labels differ")
+    diff = max(abs(g["probs"][k] - w["probs"][k]) for g, w in zip(got, want) for k in w["probs"])
+    if diff > atol:
+        raise SystemExit(f"phase 6: {label}: probabilities differ by {diff} (tolerance {atol})")
+    return diff
+
+
+def _probs(out: list[dict]) -> np.ndarray:
+    return np.array([list(o["probs"].values()) for o in out])
+
+
+def _serve_artifacts(root: str, name: str, text_only: bool, records: list[dict]):
+    """``from_engine_artifacts`` of phase 5's ``name`` run; one request of
+    ``records`` with K1's count reset just before."""
+    ckpt = os.path.join(root, name, "ckpt", "mgnns_tpu")
+    t0 = time.perf_counter()
+    pred = Predictor.from_engine_artifacts(root, ckpt, text_only=text_only,
+                                           image_backend="synthetic", strict_images=False)
+    pred.warm()
+    load_s = time.perf_counter() - t0
+    edge_max.launches = 0
+    t0 = time.perf_counter()
+    out = pred.predict(records)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, forwards = edge_max.launches, math.ceil(len(records) / pred.max_batch)
+    p = _probs(out)
+    log(f"phase 6: from_engine_artifacts({name}): loaded and warmed in {load_s} s; a "
+        f"{len(records)}-record request {ms} ms; K1 launches {launches} for {forwards} forwards; "
+        f"{card_line()}")
+    if launches != forwards:
+        raise SystemExit(f"phase 6: {name}: K1 launched {launches} times for {forwards} forwards")
+    if p.shape != (len(records), 3) or not np.isfinite(p).all() or np.abs(p.sum(1) - 1).max() > 1e-5:
+        raise SystemExit(f"phase 6: {name}: bad answer")
+    return pred, ckpt, out
+
+
+def phase6(root: str) -> None:
+    from mgnns_tpu_torch.cli import predict as cli_predict
+    from mgnns_tpu_torch.cli import serve as cli_serve
+    from mgnns_tpu_torch.models.import_reference import export_reference_state_dict
+    from mgnns_tpu_torch.serving import BatchingFrontend, load_preproc
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(root, "all_anno_json", "test_all_anno.json")) as f:
+        texts = [json.loads(line)["text"] for line in f]
+    records = [{"id": f"s{i}", "text": texts[i % len(texts)] + (" unknownword" if i % 4 == 0 else ""),
+                "image": f"img/{i}.jpg"} for i in range(REQUEST)]
+
+    # 1. both phase-5 checkpoints; the fusion one (float32) against K1's plain version
+    text_pred, _, _ = _serve_artifacts(root, "text", True, records)
+    text_pred.close()
+    pred, ckpt, out = _serve_artifacts(root, "fusion_bf16", False, records)
+    with mock.patch.object(edge_max, "_launch", edge_max.window_max_aggregate_plain):
+        plain = pred.predict(records)
+    diff = _check_answers("fusion with K1 vs plain K1", out, plain, 1e-5)
+    log(f"phase 6: fusion {REQUEST}-record probabilities with K1 vs plain K1: max |diff| {diff} "
+        f"(tolerance 1e-5, phase 3's)")
+
+    # 2. the predict CLI in this process on the same records
+    src, dst = os.path.join(root, "requests.jsonl"), os.path.join(root, "answers.jsonl")
+    with open(src, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in records)
+    edge_max.launches = 0
+    t0 = time.perf_counter()
+    cli_predict.main(["--data_root_path", root, "--checkpoint", ckpt, "--input", src,
+                      "--output", dst, "--image_backend", "synthetic"])
+    cli_s = time.perf_counter() - t0
+    with open(dst) as f:
+        lines = [json.loads(line) for line in f]
+    if [x["id"] for x in lines] != [r["id"] for r in records] or \
+            [x["label_id"] for x in lines] != [o["label_id"] for o in out]:
+        raise SystemExit("phase 6: the predict CLI's ids or labels differ from predict")
+    diff = _check_answers("predict CLI vs predict", lines, out, 1e-6)
+    log(f"phase 6: cli.predict on {REQUEST} records: {cli_s} s, K1 launches {edge_max.launches}, "
+        f"labels equal, probabilities max |diff| {diff} (tolerance 1e-6)")
+
+    # 3. a full-width model with its dead modules, made on the CPU and moved,
+    # exported as a reference wrapper, served and trained from
+    vocab, graph, label_map, _ = load_preproc(ckpt)
+    cfg = ModelConfig(num_labels=len(label_map), vocab_size=len(vocab), edges_num=graph.num_edges)
+    consts_np = {k: v.cpu().numpy() for k, v in pred.consts.items()}
+    weights = mgnns_init(cfg, num_edges=graph.num_edges,
+                         label_embedding=consts_np["label_query"],
+                         object_A=pred.params["object_A"].cpu().numpy(),
+                         place_A=pred.params["place_A"].cpu().numpy(),
+                         object_inp=consts_np["object_inp"], place_inp=consts_np["place_inp"],
+                         include_dead_modules=True, seed=6, device="cpu")
+    params, stats, consts = (tree_to(t, pred.device) for t in weights)
+    wrapper = os.path.join(root, "reference_model_best.pth.tar")
+    torch.save({"epoch": 1, "arch": "Multi_GCN_Multihead_Att", "best_score": np.float64(0.5),
+                "state_dict": export_reference_state_dict(params, stats)}, wrapper)
+    mem = Predictor(vocab=vocab, graph=graph, graph_cfg=pred.graph_cfg, label_map=label_map,
+                    params=params, batch_stats=stats, consts=consts, cfg=cfg,
+                    image_backend="synthetic", strict_images=False)
+    ref = Predictor.from_engine_artifacts(root, ckpt, reference_ckpt=wrapper,
+                                          image_backend="synthetic", strict_images=False)
+    want, got = _probs(mem.predict(records)), _probs(ref.predict(records))
+    diff = float(np.abs(want - got).max())
+    log(f"phase 6: reference wrapper ({os.path.getsize(wrapper)} bytes, {len(params)} top-level "
+        f"modules with the dead ones) served through reference_ckpt vs the model in memory: max "
+        f"|diff| {diff} (must be 0)")
+    if not np.array_equal(want, got):
+        raise SystemExit("phase 6: the reference wrapper's probabilities are not bit-equal")
+    mem.close()
+    ref.close()
+    del mem, ref, params, stats, consts, weights
+    run_cli(root, "fusion_ref", ["--init_from_reference", wrapper, "--limit_samples", "32",
+                                 "--epochs", "1", "-b", "16"], forwards=2 + 2 + 2, steps=2,
+            phase="phase 6")
+
+    # 4. the frontend under load: 8 clients x 4 requests of 1-5 records
+    import threading
+
+    chunks = []
+    forward = pred._forward
+
+    def counted_forward(batch_np):
+        chunks.append(len(batch_np["ids"]))
+        return forward(batch_np)
+
+    pred._forward = counted_forward
+    fe = BatchingFrontend(pred, max_queue=64)
+    reqs = {(c, k): [dict(records[(c * 4 + k + j) % REQUEST], id=f"c{c}k{k}r{j}")
+                     for j in range(1 + (c + k) % 5)] for c in range(8) for k in range(4)}
+    answers: dict = {}
+    errors: list = []
+
+    def client(c):
+        try:
+            for k in range(4):
+                answers[(c, k)] = fe.submit(reqs[(c, k)], timeout=120)
+        except Exception as e:  # reported below; the phase fails on it
+            errors.append(repr(e))
+
+    edge_max.launches = 0
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    launches = edge_max.launches
+    if errors or any(t.is_alive() for t in threads) or len(answers) != 32:
+        raise SystemExit(f"phase 6: frontend clients failed: {errors}")
+    pred._forward = forward
+    diff = max(_check_answers(f"frontend request {key}", answers[key], pred.predict(recs), 1e-5)
+               for key, recs in reqs.items())
+    stats_fe = fe.stats()
+    log(f"phase 6: BatchingFrontend, 8 clients x 4 requests ({sum(map(len, reqs.values()))} "
+        f"records) in {wall} s: stats {stats_fe}; {len(chunks)} device chunks of sizes {chunks}, "
+        f"K1 launches {launches}; answers equal direct predict (max |diff| {diff}, tolerance 1e-5); "
+        f"{card_line()}")
+    if launches != len(chunks) or stats_fe["requests"] != 32:
+        raise SystemExit("phase 6: the frontend's K1 launches do not match its device chunks")
+
+    # 5. the HTTP server on loopback
+    import urllib.error
+    import urllib.request
+
+    args = cli_serve.build_parser().parse_args([
+        "--data_root_path", root, "--checkpoint", ckpt, "--image_backend", "synthetic",
+        "--port", "0"])
+    server = cli_serve.make_server(args)
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    host, port = server.server_address[:2]
+
+    def http(method, path, body=None):
+        req = urllib.request.Request(f"http://{host}:{port}{path}", data=body, method=method,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        key = (3, 2)
+        code, body = http("POST", "/predict", json.dumps({"records": reqs[key]}).encode())
+        if code != 200:
+            raise SystemExit(f"phase 6: POST /predict answered {code}: {body}")
+        diff = _check_answers("HTTP /predict vs the frontend", body["predictions"], answers[key], 1e-5)
+        code_h, health = http("GET", "/healthz")
+        code_404, _ = http("GET", "/nope")
+        log(f"phase 6: cli.serve on {host}:{port}: POST /predict 200 ({len(reqs[key])} records, "
+            f"max |diff| {diff} against step 4), GET /healthz {code_h} {health}, GET /nope "
+            f"{code_404}")
+        if code_h != 200 or health.get("model") != ckpt or health.get("requests") != 1 \
+                or code_404 != 404:
+            raise SystemExit("phase 6: /healthz or the 404 answered wrongly")
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.frontend.predictor.close()
+        serving.join(30)
+    pred.close()
+    log(f"phase 6: {time.perf_counter() - t_phase} s; {card_line()}")
 
 
 def main() -> int:
@@ -1075,10 +1295,15 @@ def main() -> int:
     setup = phase3(k1)
     p4 = phase4(setup, k1, k2)
     phase4b(p4)
-    phase5()
+    phase6(phase5())
 
     log(f"total {time.perf_counter() - t_start} s")
     log(card_line())
+    k1["paths"] = ["serving.Predictor", "engine.train.Engine", "cli.main (text-only, fusion)",
+                   "serving.Predictor.from_engine_artifacts", "cli.predict",
+                   "serving.BatchingFrontend", "cli.serve", "cli.main --init_from_reference"]
+    k2["paths"] = ["engine.train.Engine.train_step", "cli.main (text-only, fusion)",
+                   "cli.main --init_from_reference"]
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -5,7 +5,9 @@ Every flag of the JAX CLI parses here, with its name and default, and does
 one of three things:
 
 - acts as in the JAX package: the model, data, optimizer, precision
-  (``--compute_dtype``, ``--fp16``), checkpoint, result and resume flags;
+  (``--compute_dtype``, ``--fp16``), checkpoint, result and resume flags,
+  reference checkpoints included (``--init_from_reference``,
+  ``--resume <x.pth[.tar]>``, ``--include_dead_modules``);
 - is parsed and ignored, as the JAX package ignores it or because it only
   changes how XLA lowers the maths: ``--unroll_trunks``, ``--stem_s2d``,
   ``--device_ids``, ``--momentum``, ``--accumulation_steps``,
@@ -35,7 +37,6 @@ import torch
 _GRAPH_CAPTURE = ("XLA dispatch machinery of the JAX package; its counterpart in the port, "
                   "CUDA-graph capture of the train step with device-resident loader tables, "
                   "is ROADMAP.md queue 1 item 5")
-_INTEROP = "waits for checkpoint interop, ROADMAP.md queue 1 item 3"
 _MULTI_DEVICE = "waits for multi-device training, ROADMAP.md queue 1 item 6"
 _TPU_COMPILER = ("a TPU compiler flag; its counterpart in the port is the nvcc build of the "
                  "kernels (mgnns_tpu_torch/kernels/build.py), which takes no flags")
@@ -93,14 +94,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, nargs="?", const="latest", default=None,
                    help="bare --resume: resume from this run's latest checkpoint; "
                         "--resume <dir>: resume the full train state from a directory of the "
-                        "port's checkpoints (a .pth[.tar] reference checkpoint is rejected)")
+                        "port's checkpoints; --resume <x.pth[.tar]>: import a reference "
+                        "checkpoint's weights with a fresh optimizer (fusion model only)")
     p.add_argument("--object_trunk_ckpt", type=str, default=None,
                    help="torchvision-format ResNet-101 .pth[.tar] for the object trunk")
     p.add_argument("--place_trunk_ckpt", type=str, default=None,
                    help="Places365 ResNet-50 .pth[.tar] for the scene trunk; a 'module.' "
                         "prefix is stripped")
-    p.add_argument("--init_from_reference", type=str, default=None, help="rejected: item 3")
-    p.add_argument("--include_dead_modules", action="store_true", help="rejected: item 3")
+    p.add_argument("--init_from_reference", type=str, default=None,
+                   help="initialize all weights from a reference-format .pth[.tar] (fusion "
+                        "model only); the trunk checkpoints then override the trunks")
+    p.add_argument("--include_dead_modules", action="store_true",
+                   help="also build the reference modules its forward never runs, so "
+                        "checkpoints round-trip to a strict reference load_state_dict")
     p.add_argument("-e", "--evaluate", action="store_true")
     p.add_argument("--save_experiment_result_path", type=str, default="result/experiment_result")
     p.add_argument("--save_pred_result_path", type=str, default="result/pred_result")
@@ -181,29 +187,10 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
         ("--mesh_data", args.mesh_data != 1, _MULTI_DEVICE),
         ("--mesh_model", args.mesh_model != 1, _MULTI_DEVICE),
         ("--multihost", args.multihost, _MULTI_DEVICE),
-        ("--init_from_reference", args.init_from_reference is not None, _INTEROP),
-        ("--include_dead_modules", args.include_dead_modules, _INTEROP),
-        ("--resume <x.pth[.tar]>",
-         args.resume is not None and args.resume.endswith((".pth", ".pth.tar", ".pt")),
-         "importing a reference torch checkpoint " + _INTEROP),
         ("--profile_dir", args.profile_dir is not None,
          "a torch.profiler trace of the first epoch waits for ROADMAP.md queue 1 item 5"),
     )
     return [f"{flag}: {why}" for flag, on, why in checks if on]
-
-
-def load_torch_state_dict(path: str) -> tuple[dict, dict]:
-    """(state_dict, meta) from a reference/torchvision ``.pth[.tar]`` file:
-    a bare state_dict or the ``{'epoch', 'arch', 'state_dict', ...}``
-    wrapper (the Places365 release's format), with DataParallel's
-    ``module.`` prefix stripped (``mgnns_tpu/cli/main.py:252-272``)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    meta = {}
-    if isinstance(obj, dict) and "state_dict" in obj:
-        meta = {k: obj[k] for k in ("epoch", "best_score") if k in obj}
-        obj = obj["state_dict"]
-    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in obj.items()}
-    return sd, meta
 
 
 def main(argv=None) -> dict:
@@ -211,15 +198,18 @@ def main(argv=None) -> dict:
     rejected = unported_flags(args)
     if rejected:
         raise SystemExit("not supported by the PyTorch port:\n  " + "\n  ".join(rejected))
-    if args.text_only and (args.object_trunk_ckpt or args.place_trunk_ckpt):
-        raise SystemExit("--object_trunk_ckpt/--place_trunk_ckpt need the fusion model; "
-                         "drop --text_only")
+    if args.text_only and (args.object_trunk_ckpt or args.place_trunk_ckpt
+                           or args.init_from_reference):
+        raise SystemExit("--object_trunk_ckpt/--place_trunk_ckpt/--init_from_reference need "
+                         "the fusion model; drop --text_only")
     from mgnns_tpu_torch.config import DataConfig, ModelConfig, TextGraphConfig
     from mgnns_tpu_torch.data.dataset import TumblrDataset, load_constants
     from mgnns_tpu_torch.data.loader import DeviceLoader
     from mgnns_tpu_torch.data.text import build_text_side, read_anno
-    from mgnns_tpu_torch.engine.checkpoint import Checkpointer
     from mgnns_tpu_torch.engine.train import Engine
+    from mgnns_tpu_torch.models.import_reference import (
+        import_reference_state_dict, load_torch_state_dict,
+    )
     from mgnns_tpu_torch.serving import save_preproc
     from mgnns_tpu_torch.utils import resolve_device
 
@@ -321,8 +311,22 @@ def main(argv=None) -> dict:
             object_A=consts_np["object_A"], place_A=consts_np["place_A"],
             object_inp=consts_np["object_inp"], place_inp=consts_np["place_inp"],
             vocab_embedding=vocab_embedding, node_embedding=vocab_embedding,
-            edge_weights=edge_weights, seed=args.seed, device=device)
-        # pretrained trunks replace the random ones after init, as in the JAX CLI
+            edge_weights=edge_weights, include_dead_modules=args.include_dead_modules,
+            seed=args.seed, device=device)
+        # --emb_type seeds the embedding tables at init, --init_from_reference
+        # then replaces every weight, and the trunk checkpoints override the
+        # trunks last (the JAX CLI's precedence)
+        if args.init_from_reference:
+            sd, _ = load_torch_state_dict(args.init_from_reference)
+            params, batch_stats = import_reference_state_dict(
+                sd, num_layers=args.num_layers, bidirectional=args.bidirectional,
+                stack_num=args.stack_num, device=device)
+            got_v = params["embedding"]["table"].shape[0]
+            if got_v != len(vocab):
+                raise SystemExit(
+                    f"--init_from_reference vocab mismatch: checkpoint has {got_v} rows, this "
+                    f"corpus/config has {len(vocab)} (check --text_min_count/--pmi_phase)")
+            print(f"initialized all weights from {args.init_from_reference}")
         for side, ckpt_path, depth in (("object", args.object_trunk_ckpt, 101),
                                        ("place", args.place_trunk_ckpt, 50)):
             if ckpt_path:
@@ -365,11 +369,27 @@ def main(argv=None) -> dict:
         return lambda: ld
 
     # bare --resume: this run's latest checkpoint; a directory: that one's
+    # full train state; a .pth[.tar] file: a reference checkpoint's weights
     if args.resume and args.resume != "latest":
-        if not os.path.isdir(args.resume):
-            raise SystemExit(f"--resume: {args.resume!r} is not a checkpoint directory")
-        engine.restore(checkpointer=Checkpointer(args.resume))
-        print(f"resumed train state from {args.resume} (epoch {engine.epoch})")
+        if os.path.isdir(args.resume):
+            engine.restore_from_dir(args.resume)
+            print(f"resumed train state from {args.resume} (epoch {engine.epoch})")
+        elif os.path.isfile(args.resume):
+            if args.text_only:
+                raise SystemExit("--resume <torch ckpt> needs the fusion model; drop --text_only")
+            sd, meta = load_torch_state_dict(args.resume)
+            engine.load_model_state(*import_reference_state_dict(
+                sd, num_layers=args.num_layers, bidirectional=args.bidirectional,
+                stack_num=args.stack_num, device=device))
+            if "epoch" in meta:
+                engine.epoch = int(meta["epoch"])  # the reference stores the next epoch
+            if "best_score" in meta:
+                engine.best_score = float(meta["best_score"])
+            print(f"resumed weights from torch checkpoint {args.resume} "
+                  f"(epoch {engine.epoch}, fresh optimizer)")
+        else:
+            raise SystemExit(f"--resume: {args.resume!r} is neither a checkpoint directory "
+                             f"nor a .pth[.tar] file")
 
     run_config = {
         "text_min_count": args.text_min_count, "ngram": args.ngram,

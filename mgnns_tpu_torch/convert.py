@@ -15,11 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mgnns_tpu_torch.models.mgnns import DEAD_MODULES
 from mgnns_tpu_torch.utils import resolve_device, tree_map
 
-# the parameters the forward reads; the JAX package's dead modules (GRU,
-# gates, linear pyramids, another_mha, text head) never run and are not
-# carried across
+# the parameters the forward reads; the dead reference modules
+# (models.mgnns.DEAD_MODULES: GRU, gates, linear pyramids, another_mha, text
+# head) never run and are carried across when the JAX tree has them
 FUSION_KEYS = (
     "text_gcn", "embedding", "lstm", "liner_img_object", "liner_img_place",
     "gc1", "gc2", "object_attention", "place_attention", "object_linear_5",
@@ -76,8 +77,10 @@ def resnet_from_jax(tree: dict, device="cuda") -> dict:
 
 def params_from_jax(params: dict, device="cuda") -> dict:
     """The fusion model's parameters -- or a gradient tree of the same shape
-    -- for :func:`mgnns_tpu_torch.models.mgnns.mgnns_apply`."""
+    -- for :func:`mgnns_tpu_torch.models.mgnns.mgnns_apply`, with the dead
+    modules the JAX tree carries (``mgnns_init(include_dead_modules=True)``)."""
     out = {k: to_torch(params[k], device) for k in FUSION_KEYS}
+    out.update({k: to_torch(params[k], device) for k in DEAD_MODULES if k in params})
     out["object_trunk"] = resnet_from_jax(params["object_trunk"], device)
     out["place_trunk"] = resnet_from_jax(params["place_trunk"], device)
     return out

@@ -4,8 +4,11 @@ Port of the JAX package's ``mgnns_tpu/engine/checkpoint.py`` (Orbax there).
 Each save writes ``<dir>/step_<n>.pt`` atomically (a temporary file, then
 ``os.replace``).  Retention keeps the newest ``max_to_keep`` steps plus the
 best step by validation accuracy, which ``<dir>/best.json`` records, so a
-resume never rolls back past the latest step.  Reading the JAX package's
-Orbax checkpoints is queued in ``ROADMAP.md``.
+resume never rolls back past the latest step; ``max_to_keep=0`` keeps every
+step, and a ``Checkpointer`` that only restores removes nothing.  The port
+reads no Orbax checkpoint: weights cross from the reference or the JAX
+package as reference-named ``state_dict``s in ``.pth[.tar]`` files, through
+:mod:`mgnns_tpu_torch.models.import_reference`.
 """
 
 from __future__ import annotations

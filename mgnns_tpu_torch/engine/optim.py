@@ -28,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from mgnns_tpu_torch.models.mgnns import DEAD_MODULES
 from mgnns_tpu_torch.utils import tree_leaves, tree_map
 
 # param-subtree -> group name, in reference get_config_optim order
@@ -45,7 +46,10 @@ _GROUPS_LISTED = {
     "text_img_object_mha": "base",
     "text_img_place_mha": "base",
 }
-_ALWAYS_FROZEN = {"object_A", "place_A"}
+# the A matrices get no gradient (the reference detaches gen_adj's output);
+# the dead reference modules are never run and sit in no reference group, so
+# they are never updated (weight decay alone would otherwise move them)
+_ALWAYS_FROZEN = {"object_A", "place_A", *DEAD_MODULES}
 
 
 def label_params(params: dict, faithful: bool = False, freeze_trunks: bool = False) -> dict:
@@ -96,16 +100,26 @@ class Optimizer:
                  freeze_trunks: bool = False, algo: str = "adam"):
         if algo not in ("adam", "sgd"):
             raise ValueError(f"unknown optimizer algo {algo!r}")
-        factors = {"base": 1.0, "text": 10.0, "lstm": 10.0, "trunk": lrp, "frozen": 0.0}
-        self.factors = [factors[lab] for lab in tree_leaves(label_params(params, faithful, freeze_trunks))]
-        self.trained = [i for i, f in enumerate(self.factors) if f != 0.0]
+        self.group_factors = {"base": 1.0, "text": 10.0, "lstm": 10.0, "trunk": lrp, "frozen": 0.0}
+        self.faithful = faithful
+        self.freeze_trunks = freeze_trunks
+        self.label(params)
         self.schedule = lr_schedule(lr, steps_per_epoch, epoch_step, lr_decay)
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.accumulation_steps = accumulation_steps
         self.algo = algo
 
+    def label(self, params: dict) -> None:
+        """The group factor of each leaf of ``params``, in leaf order; a tree
+        of another structure (weights imported with their dead modules, a
+        restored checkpoint) is labelled anew."""
+        labels = tree_leaves(label_params(params, self.faithful, self.freeze_trunks))
+        self.factors = [self.group_factors[lab] for lab in labels]
+        self.trained = [i for i, f in enumerate(self.factors) if f != 0.0]
+
     def init(self, params: dict) -> dict:
+        self.label(params)
         leaves = tree_leaves(params)
         state: dict = {"count": 0}
         if self.algo == "adam":
@@ -142,8 +156,9 @@ class Optimizer:
         self._chain(params, grads, state)
 
     def _chain(self, params, grads, state) -> None:
+        # 1. clip by the global norm of every leaf, frozen ones included; a
+        # missing gradient is zeros and adds nothing to the norm
         present = [g for g in grads if g is not None]
-        # 1. clip by the global norm of every leaf, frozen ones included
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
         p = [params[i] for i in self.trained]

@@ -41,7 +41,9 @@ from torch.profiler import record_function
 from mgnns_tpu_torch.engine import metrics as M
 from mgnns_tpu_torch.engine.optim import Optimizer
 from mgnns_tpu_torch.nn.core import derive_seed
-from mgnns_tpu_torch.utils import resolve_device, tree_leaves, tree_map, tree_to, tree_unflatten
+from mgnns_tpu_torch.utils import (
+    resolve_device, tree_leaves, tree_map, tree_paths, tree_to, tree_unflatten,
+)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -346,20 +348,41 @@ class Engine:
 
     def restore(self, step: int | None = None, checkpointer=None) -> None:
         """Load the full train state saved at ``step`` (default: the latest)
-        onto the engine's device; training resumes at the next epoch."""
+        onto the engine's device; training resumes at the next epoch.  The
+        saved trees must have the leaves of the engine's (a checkpoint with
+        dead modules needs an engine built with them); a missing or extra
+        leaf raises ``ValueError``."""
         checkpointer = checkpointer or self.checkpointer
         assert checkpointer is not None
         restored = checkpointer.restore(step, device=self.device)
+        for name in ("params", "batch_stats"):
+            want, got = set(tree_paths(getattr(self, name))), set(tree_paths(restored[name]))
+            if want != got:
+                raise ValueError(
+                    f"checkpoint {name} do not match the engine's: missing "
+                    f"{sorted(want - got)[:5]}, extra {sorted(got - want)[:5]}")
         self.params = restored["params"]
         self.batch_stats = restored["batch_stats"]
         self.opt_state = restored["opt_state"]
         self.step = int(restored["step"])
         self.epoch = int(restored["epoch"]) + 1
         self.best_score = float(restored["best_score"])
+        if self.opt is not None:
+            self.opt.label(self.params)  # the saved dict order is the state's leaf order
+
+    def restore_from_dir(self, path: str, step: int | None = None) -> None:
+        """Resume the full train state from a directory of the port's
+        checkpoints other than the engine's own; nothing in ``path`` is
+        pruned or written."""
+        from mgnns_tpu_torch.engine.checkpoint import Checkpointer
+
+        self.restore(step, checkpointer=Checkpointer(path, max_to_keep=0))
 
     def load_model_state(self, params: Any, batch_stats: Any) -> None:
         """Replace the parameters and running statistics (for example weights
-        converted from the JAX package) and start a fresh optimizer state."""
+        converted from the JAX package or imported from a reference
+        checkpoint, whose dead modules the optimizer then freezes) and start
+        a fresh optimizer state, as the reference's resume does."""
         self.params = tree_to(params, self.device)
         self.batch_stats = tree_to(batch_stats, self.device)
         self.opt_state = self.opt.init(self.params) if self.opt is not None else None

@@ -41,12 +41,16 @@ def load_adj_pickle(path: str) -> dict:
     return {"nums": np.asarray(result["nums"]), "adj": np.asarray(result["adj"])}
 
 
-def gen_A(num_classes: int, t: float, adj_data: dict, gama: float = 0.2) -> tuple[np.ndarray, np.ndarray]:
-    """Threshold + reweight the co-occurrence counts ``{'nums', 'adj'}``.
+def gen_A(num_classes: int, t: float, adj_data: dict | str,
+          gama: float = 0.2) -> tuple[np.ndarray, np.ndarray]:
+    """Threshold + reweight the co-occurrence counts ``adj_data``, a loaded
+    ``{'nums', 'adj'}`` dict or the path of its pickle.
 
     Steps: P(j|i) = adj / nums[:, None]; binarize at ``t``; scale rows by
     ``gama / (column_sums + 1e-6)``; add ``(1 - gama) * I`` self-loops.
     """
+    if isinstance(adj_data, str):
+        adj_data = load_adj_pickle(adj_data)
     _adj = np.array(adj_data["adj"], dtype=np.float64)
     _nums = np.array(adj_data["nums"], dtype=np.float64)[:, None]
     _adj = _adj / _nums

@@ -38,6 +38,13 @@ from mgnns_tpu_torch.nn.core import (
 )
 from mgnns_tpu_torch.utils import resolve_device, tree_to
 
+# the reference modules that its __init__ builds and its forward never runs
+DEAD_MODULES = (
+    "rnn", "object_gate", "place_gate",
+    *(f"{side}_linear_{i}" for side in ("object", "place") for i in (1, 2, 3)),
+    "text_object_text_mha", "text_place_text_mha", "text_head",
+)
+
 # ImageNet statistics (reference Multi_GCN_Multihead_att.py:350-351)
 _IMAGE_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 _IMAGE_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -90,12 +97,14 @@ def mgnns_init(
         (``PmiGraph.initial_edge_weights``).
       object_trunk / place_trunk: optional (params, stats) trunks
         (:func:`mgnns_tpu_torch.nn.resnet.import_torch_state_dict`).
-      include_dead_modules: not ported; raises ``NotImplementedError``.
+      include_dead_modules: also build the reference modules that its
+        ``__init__`` constructs and its forward never runs
+        (:data:`DEAD_MODULES`, shapes of ``mgnns_tpu/models/mgnns.py:155-176``),
+        so an exported ``state_dict`` satisfies a reference-side strict
+        ``load_state_dict``.  :func:`mgnns_apply` never reads them and the
+        optimizer freezes them.  They are drawn after every other parameter,
+        so the live parameters do not depend on this flag.
     """
-    if include_dead_modules:
-        raise NotImplementedError(
-            "include_dead_modules (the reference modules its forward never runs) waits for "
-            "checkpoint interop, ROADMAP.md queue 1 item 3")
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.bi_hidden_size
@@ -134,6 +143,22 @@ def mgnns_init(
     consts = {"label_query": as_param(label_embedding, g),
               "object_inp": as_param(object_inp, g),
               "place_inp": as_param(place_inp, g)}
+    if include_dead_modules:
+        # GRU text encoder (reference :172-177), gates (:186-187), the
+        # per-channel linear pyramids (:316-326), the text_object_text /
+        # text_place_text blocks (:214-245, calls commented out at :516-532)
+        # and Text_GCN's classification head (Text_GCN.py:95)
+        p["rnn"] = lstm.gru_init(g, cfg.emb_size, cfg.hidden_size, cfg.num_layers,
+                                 cfg.bidirectional)
+        p["object_gate"] = linear_init(g, 2 * d, d)
+        p["place_gate"] = linear_init(g, 2 * d, d)
+        for side in ("object", "place"):
+            p[f"{side}_linear_1"] = linear_init(g, 2048, 1024)
+            p[f"{side}_linear_2"] = linear_init(g, 1024, 512)
+            p[f"{side}_linear_3"] = linear_init(g, 512, 256)
+        p["text_object_text_mha"] = attention.my_another_mha_init(g, cfg.n_head, d, cfg.d_kv)
+        p["text_place_text_mha"] = attention.my_another_mha_init(g, cfg.n_head, d, cfg.d_kv)
+        p["text_head"] = linear_init(g, cfg.emb_size, cfg.num_labels)
     return p, s, consts
 
 

@@ -12,7 +12,16 @@ Port of the JAX package's ``mgnns_tpu/nn/attention.py``:
   ``models/moudles.py:198-230``);
 - :func:`label_attention_apply` — per-head *element-wise* Q*K energies (not
   dot products), softmax over the per-head feature slice, element-wise
-  product with V (reference ``models/Multi_GCN_Multihead_att.py:65-133``).
+  product with V (reference ``models/Multi_GCN_Multihead_att.py:65-133``);
+- :func:`my_another_mha_init` / :func:`my_another_mha_apply` — the
+  reference's ``MyAnotherMultiHeadAttention`` (``moudles.py:232-288``), which
+  differs from the 1-query wrapper only in how it orders the (batch, head)
+  axes; its blocks are built but their calls are commented out of the
+  reference forward (``Multi_GCN_Multihead_att.py:516-532``), so these are
+  aliases;
+- :func:`positional_encoding_table` / :func:`add_positional_encoding` — the
+  reference's sinusoid ``PositionalEncoding`` (``submodules.py:159-182``),
+  defined there but never instantiated.
 
 Dropout sits where the JAX package puts it (attention probabilities, output
 projection, FFN, label attention) and draws from per-site generators
@@ -23,9 +32,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from mgnns_tpu_torch.nn.core import RngStream, dropout, layer_norm, layer_norm_init, linear, linear_init
+from mgnns_tpu_torch.utils import resolve_device
 
 
 def mha_init(g: torch.Generator, n_head: int, d_model: int, d_k: int, d_v: int) -> dict:
@@ -114,6 +125,27 @@ def my_mha_apply(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = ffn_apply(p["pos_ffn"], res[0], dropout_rate=dropout_rate, train=train,
                     generator=rngs.next("ffn"))[:, 0, :]
     return (out, *res[1:])
+
+
+my_another_mha_init = my_mha_init
+my_another_mha_apply = my_mha_apply
+
+
+def positional_encoding_table(d_hid: int, n_position: int = 200, device="cuda") -> torch.Tensor:
+    """[n_position, d_hid] float32 sinusoid table on ``device``:
+    angle(pos, j) = pos / 10000^(2*(j//2)/d_hid), sin on even dims and cos
+    on odd ones, computed in float64 and rounded once."""
+    pos = np.arange(n_position, dtype=np.float64)[:, None]
+    j = np.arange(d_hid, dtype=np.float64)[None, :]
+    angles = pos / np.power(10000.0, 2.0 * np.floor(j / 2.0) / d_hid)
+    table = np.where(np.arange(d_hid)[None, :] % 2 == 0, np.sin(angles), np.cos(angles))
+    return torch.tensor(table.astype(np.float32), device=resolve_device(device))
+
+
+def add_positional_encoding(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x [B, L, D] + table[:L]; no gradient reaches the table (the
+    reference's ``x + pos_table[:, :x.size(1)].detach()``)."""
+    return x + table[: x.shape[1]].detach()[None, :, :]
 
 
 def label_attention_init(g: torch.Generator, hid_dim: int, image_dim: int) -> dict:

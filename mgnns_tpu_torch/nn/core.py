@@ -74,9 +74,11 @@ class RngStream:
 # Linear
 
 
-def linear_init(g: torch.Generator, in_dim: int, out_dim: int, w_init="torch") -> dict:
+def linear_init(g: torch.Generator, in_dim: int, out_dim: int, w_init="torch",
+                bias: bool = True) -> dict:
     """``w_init``: 'torch' (U(+-1/sqrt(in))), 'xavier_normal', or
-    ('normal', std).  Weight ``[in, out]``, bias U(+-1/sqrt(in))."""
+    ('normal', std).  Weight ``[in, out]``, bias U(+-1/sqrt(in)) unless
+    ``bias`` is False."""
     if w_init == "torch":
         w = uniform(g, (in_dim, out_dim), 1.0 / math.sqrt(in_dim))
     elif w_init == "xavier_normal":
@@ -85,6 +87,8 @@ def linear_init(g: torch.Generator, in_dim: int, out_dim: int, w_init="torch") -
         w = normal(g, (in_dim, out_dim), w_init[1])
     else:
         raise ValueError(f"unknown w_init {w_init!r}")
+    if not bias:
+        return {"w": w}
     return {"w": w, "b": uniform(g, (out_dim,), 1.0 / math.sqrt(in_dim))}
 
 

@@ -41,3 +41,13 @@ def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` whose leaves are ``leaves``, in order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_paths(tree, prefix: str = "") -> list[str]:
+    """The ``/``-joined key paths of the leaves of a tree, in
+    :func:`tree_map`'s order (list items by index)."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in tree_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in tree_paths(v, f"{prefix}/{i}")]
+    return [prefix]

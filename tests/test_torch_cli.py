@@ -153,8 +153,7 @@ def _sample_argv(action) -> list[str]:
 
 REJECTED = {"device_images", "device_text", "device_images_budget_gb", "cache_eval_batches",
             "fused_segments", "use_pallas", "libtpu_init_args", "perf_preset", "mesh_data",
-            "mesh_model", "multihost", "init_from_reference", "include_dead_modules", "resume",
-            "profile_dir"}
+            "mesh_model", "multihost", "profile_dir"}
 
 
 def test_every_jax_flag_parses_and_is_honoured_ignored_or_rejected_with_its_counterpart():
@@ -271,15 +270,16 @@ def test_fusion_cli_ingests_trunk_checkpoints_bit_for_bit(tmp_path):
 
 def test_model_side_pieces_of_the_cli_match_jax(tmp_path):
     """The pieces the CLI calls against their JAX counterparts:
-    ``initial_edge_weights`` both ways, ``build_cooccurrence`` and
-    ``load_adj_pickle``, and the given tables of ``text_model_init`` and
-    ``mgnns_init`` (padding row zeroed); ``include_dead_modules`` raises."""
+    ``initial_edge_weights`` both ways, ``build_cooccurrence``,
+    ``load_adj_pickle`` and ``gen_A`` of a pickle's path, and the given
+    tables of ``text_model_init`` and ``mgnns_init`` (padding row zeroed)."""
     from mgnns_tpu.graphs.cooccur import build_cooccurrence as j_build, load_adj_pickle as j_load
+    from mgnns_tpu.graphs.cooccur import gen_A as j_gen_A
     from mgnns_tpu.graphs.pmi import cal_pmi as j_cal_pmi
     from mgnns_tpu.models import text_model_init as j_text_model_init
 
     from mgnns_tpu_torch.config import ModelConfig
-    from mgnns_tpu_torch.graphs.cooccur import build_cooccurrence, load_adj_pickle
+    from mgnns_tpu_torch.graphs.cooccur import build_cooccurrence, gen_A, load_adj_pickle
     from mgnns_tpu_torch.graphs.pmi import PmiGraph
     from mgnns_tpu_torch.models.mgnns import mgnns_init
     from mgnns_tpu_torch.models.text_only import text_model_init
@@ -300,6 +300,9 @@ def test_model_side_pieces_of_the_cli_match_jax(tmp_path):
     for k in ("nums", "adj"):
         np.testing.assert_array_equal(load_adj_pickle(str(tmp_path / "adj.pkl"))[k],
                                       j_load(str(tmp_path / "adj.pkl"))[k])
+    for got, want in zip(gen_A(6, 0.3, str(tmp_path / "adj.pkl")),
+                         j_gen_A(6, 0.3, str(tmp_path / "adj.pkl"))):
+        np.testing.assert_array_equal(got, want)
 
     r = np.random.default_rng(0)
     emb = r.standard_normal((len(vocab), 300)).astype(np.float32)
@@ -324,5 +327,3 @@ def test_model_side_pieces_of_the_cli_match_jax(tmp_path):
     np.testing.assert_array_equal(params["text_gcn"]["edge_weight"].numpy(), edges)
     _assert_trees_equal(params["object_trunk"], trunk[0])
     _assert_trees_equal(stats["object_trunk"], trunk[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        mgnns_init(cfg, include_dead_modules=True, device=CPU, **z)

@@ -264,3 +264,54 @@ def test_trunk_forward_on_card_matches_cpu_under_the_pin(cuda_device, monkeypatc
             got = resnet.resnet_apply(*on_card[:2], on_card[2])[0].cpu()
         errs.append(float((got - want).abs().max() / want.abs().max()))
     assert errs[0] <= 1e-4 and errs[0] < errs[1], errs
+
+
+@pytest.mark.cuda
+def test_text_checkpoint_served_on_card_with_k1_per_forward(cuda_device, tmp_path):
+    """A text-only checkpoint served by ``Predictor.from_engine_artifacts`` on
+    the card: K1 once per forward, answers within 1e-5 of the same
+    checkpoint served on the CPU, and ``BatchingFrontend`` launching K1 once
+    per device chunk."""
+    import threading
+
+    from mgnns_tpu_torch.config import TextGraphConfig
+    from mgnns_tpu_torch.engine.checkpoint import Checkpointer
+    from mgnns_tpu_torch.graphs.pmi import cal_pmi
+    from mgnns_tpu_torch.graphs.vocab import build_vocab
+    from mgnns_tpu_torch.serving import BatchingFrontend, Predictor, save_preproc
+
+    corpus = ["happy joy smile great day", "sad cry tears bad day", "joy smile happy fun",
+              "cry bad sad terrible", "great fun smile joy", "terrible tears bad cry"]
+    vocab = build_vocab(corpus, 1)
+    graph = cal_pmi(corpus, vocab, window_size=3, min_cooccurrence=1)
+    labels = {"neg": 0, "pos": 1}
+    ckpt = str(tmp_path / "ckpt")
+    Checkpointer(ckpt).save(1, {"params": text_model_init(len(vocab), 2, graph.num_edges,
+                                                          seed=4, device="cpu"),
+                                "batch_stats": {}})
+    save_preproc(ckpt, vocab, graph, labels, TextGraphConfig())
+    records = [{"id": i, "text": corpus[i % 6] + " unknown" * (i % 3)} for i in range(20)]
+    preds = {dev: Predictor.from_engine_artifacts(str(tmp_path), ckpt, text_only=True,
+                                                  max_batch=8, device=dev)
+             for dev in ("cuda", "cpu")}
+    edge_max.launches = 0
+    card = preds["cuda"].predict(records)
+    assert edge_max.launches == 3
+    host = preds["cpu"].predict(records)
+    assert [c["label"] for c in card] == [h["label"] for h in host]
+    np.testing.assert_allclose([list(c["probs"].values()) for c in card],
+                               [list(h["probs"].values()) for h in host], atol=1e-5)
+
+    pred = preds["cuda"]
+    chunks = []
+    forward = pred._forward
+    pred._forward = lambda b: (chunks.append(1), forward(b))[1]
+    fe = BatchingFrontend(pred, max_queue=16)
+    edge_max.launches = 0
+    threads = [threading.Thread(target=fe.submit, args=(records[i:i + 5],)) for i in range(0, 20, 5)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+        assert not t.is_alive()
+    assert edge_max.launches == len(chunks) > 0 and fe.stats()["requests"] == 4

@@ -93,12 +93,17 @@ def test_predictor_runs_on_cpu_when_asked():
     assert [sorted(o["probs"]) for o in out] == [["x", "y"]] * 3
 
 
-@pytest.mark.parametrize("entry", ["text_model_init", "mgnns_init", "to_torch"])
-def test_constructors_default_to_cuda_and_raise_without_it(no_cuda, entry):
+@pytest.mark.parametrize("entry", ["text_model_init", "mgnns_init", "to_torch",
+                                   "import_reference_state_dict", "from_engine_artifacts",
+                                   "positional_encoding_table"])
+def test_constructors_default_to_cuda_and_raise_without_it(no_cuda, entry, tmp_path):
     from mgnns_tpu_torch import convert
     from mgnns_tpu_torch.config import ModelConfig
+    from mgnns_tpu_torch.models.import_reference import import_reference_state_dict
     from mgnns_tpu_torch.models.mgnns import mgnns_init
     from mgnns_tpu_torch.models.text_only import text_model_init
+    from mgnns_tpu_torch.nn.attention import positional_encoding_table
+    from mgnns_tpu_torch.serving import Predictor
 
     with pytest.raises(RuntimeError, match="cuda"):
         if entry == "text_model_init":
@@ -107,8 +112,14 @@ def test_constructors_default_to_cuda_and_raise_without_it(no_cuda, entry):
             z = np.zeros((2, 2))
             mgnns_init(ModelConfig(), num_edges=2, label_embedding=z, object_A=z,
                        place_A=z, object_inp=z, place_inp=z)
-        else:
+        elif entry == "to_torch":
             convert.to_torch({"w": np.zeros(3)})
+        elif entry == "import_reference_state_dict":
+            import_reference_state_dict({})
+        elif entry == "from_engine_artifacts":
+            Predictor.from_engine_artifacts(str(tmp_path), str(tmp_path), text_only=True)
+        else:
+            positional_encoding_table(4)
 
 
 def test_bfloat16_config_is_accepted_with_float32_parameters():
@@ -134,12 +145,18 @@ def test_unknown_compute_dtype_raises():
         ModelConfig(compute_dtype="float16")
 
 
-def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
-    """The training CLI runs on the card unless given --platform cpu."""
-    from mgnns_tpu_torch.cli.main import main
+@pytest.mark.parametrize("cli", ["main", "predict", "serve"])
+def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, cli, tmp_path):
+    """The training, predict and serve CLIs run on the card unless given
+    --platform cpu."""
+    from mgnns_tpu_torch.cli import main, predict, serve
 
+    argv = {"main": ["--text_only"],
+            "predict": ["--checkpoint", str(tmp_path), "--input", "x.jsonl", "--text_only"],
+            "serve": ["--checkpoint", str(tmp_path), "--text_only", "--port", "0"]}[cli]
     with pytest.raises(RuntimeError, match="cuda"):
-        main(["--data_root_path", str(tmp_path), "--text_only"])
+        {"main": main, "predict": predict, "serve": serve}[cli].main(
+            ["--data_root_path", str(tmp_path)] + argv)
 
 
 @pytest.mark.parametrize("entry", ["engine", "loader", "checkpoint_restore"])
