@@ -61,7 +61,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``reference_ckpt``, and ``cli.main --init_from_reference`` trains from it
    (K1 and K2 counted); ``BatchingFrontend`` under 8 clients x 4 requests
    equals direct ``predict``; ``cli.serve.make_server`` answers ``/healthz``,
-   ``/predict`` and a 404 over loopback.
+   ``/predict`` and a 404 over loopback;
+7. export on the card: phase 5's float32 fusion and text-only checkpoints
+   served as in phase 6, each written by ``mgnns_tpu_torch.export.
+   export_predictor`` and loaded again by ``load_exported``: a 37-record
+   request within 1e-5 of the live ``Predictor`` with K1 once per forward of
+   the exported program; the 16-record forward of the live and the exported
+   fusion model timed in turns and profiled once each (device busy, kernel
+   launches, host ops by self time); ``cli.predict --from_exported`` in a fresh
+   process within 1e-5; a text-only model exported on the CPU and served on
+   the card (K1 counted); ``cli.serve --from_exported`` over loopback.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -1055,13 +1064,14 @@ def phase5() -> str:
 REQUEST = 37
 
 
-def _check_answers(label: str, got: list[dict], want: list[dict], atol: float) -> float:
+def _check_answers(label: str, got: list[dict], want: list[dict], atol: float,
+                   phase: str = "phase 6") -> float:
     """Labels equal and probabilities within ``atol``; returns the max |diff|."""
     if [g["label"] for g in got] != [w["label"] for w in want]:
-        raise SystemExit(f"phase 6: {label}: labels differ")
+        raise SystemExit(f"{phase}: {label}: labels differ")
     diff = max(abs(g["probs"][k] - w["probs"][k]) for g, w in zip(got, want) for k in w["probs"])
     if diff > atol:
-        raise SystemExit(f"phase 6: {label}: probabilities differ by {diff} (tolerance {atol})")
+        raise SystemExit(f"{phase}: {label}: probabilities differ by {diff} (tolerance {atol})")
     return diff
 
 
@@ -1258,6 +1268,181 @@ def phase6(root: str) -> None:
     log(f"phase 6: {time.perf_counter() - t_phase} s; {card_line()}")
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+def _forward_turns(preds: dict, batch_np: dict, turns: int = 5) -> dict:
+    """Host wall ms of one forward of each Predictor, synchronized, in turns."""
+    walls = {name: [] for name in preds}
+    for _ in range(turns):
+        for name, pred in preds.items():
+            t0 = time.perf_counter()
+            pred._forward(batch_np)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _profile_forwards(preds: dict, batch_np: dict) -> None:
+    """One profiled forward of each Predictor: device busy ms and kernel
+    launches, and the host ops with the most self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, pred in preds.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pred._forward(batch_np)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        host = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+        log(f"phase 7: {name} 16-record forward, profiled: device busy "
+            f"{sum(e.self_device_time_total for e in kernels) / 1e3} ms over "
+            f"{sum(e.count for e in kernels)} kernel launches; host ops by self time "
+            f"{[(e.key, e.count, e.self_cpu_time_total / 1e3) for e in host]}")
+
+
+def _export_and_load(live: Predictor, out_dir: str, label: str, records: list[dict]):
+    """Export ``live``, load it on the card, answer ``records`` with K1's
+    count reset just before; the answers must be the live ones within
+    1e-5 with K1 once per forward."""
+    from mgnns_tpu_torch.export import export_predictor, load_exported
+
+    t0 = time.perf_counter()
+    export_predictor(live, out_dir)
+    export_s = time.perf_counter() - t0
+    sizes = {f: os.path.getsize(os.path.join(out_dir, f)) for f in ("model.pt2", "params.npz")}
+    t0 = time.perf_counter()
+    pred = load_exported(out_dir, image_backend="synthetic", strict_images=False, device="cuda")
+    pred.warm()
+    load_s = time.perf_counter() - t0
+    edge_max.launches = 0
+    out = pred.predict(records)
+    launches, forwards = edge_max.launches, math.ceil(len(records) / pred.max_batch)
+    want = live.predict(records)
+    diff = _check_answers(f"{label} exported vs live", out, want, 1e-5, "phase 7")
+    log(f"phase 7: {label} exported on {live.device} in {export_s} s (model.pt2 "
+        f"{sizes['model.pt2']} bytes, params.npz {sizes['params.npz']} bytes), loaded on the "
+        f"card and warmed in {load_s} s; a {len(records)}-record request: K1 launches "
+        f"{launches} for {forwards} forwards, probabilities max |diff| {diff} against the live "
+        f"Predictor (tolerance 1e-5), labels equal; {card_line()}")
+    if launches != forwards:
+        raise SystemExit(f"phase 7: {label}: K1 launched {launches} times for {forwards} forwards")
+    return pred, want
+
+
+def phase7(root: str, k1: dict) -> None:
+    """Phase 5's checkpoints exported and served again on the card:
+    ``load_exported`` in this process, ``cli.predict --from_exported`` in a
+    fresh one, a text-only model exported on the CPU and served on the card,
+    and ``cli.serve --from_exported`` over loopback."""
+    import threading
+    import urllib.request
+
+    from mgnns_tpu_torch.cli import serve as cli_serve
+
+    t_phase = time.perf_counter()
+    out_root = tempfile.mkdtemp(prefix="mgnns_export_")
+    with open(os.path.join(root, "all_anno_json", "test_all_anno.json")) as f:
+        texts = [json.loads(line)["text"] for line in f]
+    records = [{"id": f"x{i}", "text": texts[(3 * i) % len(texts)] + (" unknownword" * (i % 3)),
+                "image": f"img/{i}.jpg"} for i in range(REQUEST)]
+    common = dict(image_backend="synthetic", strict_images=False)
+    fusion_ckpt = os.path.join(root, "fusion_bf16", "ckpt", "mgnns_tpu")
+    text_ckpt = os.path.join(root, "text", "ckpt", "mgnns_tpu")
+
+    # 1-2. the float32 fusion and the text-only Predictor, exported on the card
+    live = Predictor.from_engine_artifacts(root, fusion_ckpt, **common)
+    if live.cfg.image_size != 448 or live.cfg.compute_dtype != "float32" or live.max_batch != 16:
+        raise SystemExit(f"phase 7: not the full-width float32 model: {live.cfg}")
+    fusion_dir = os.path.join(out_root, "fusion")
+    pred, want = _export_and_load(live, fusion_dir, "fusion", records)
+    batch_np, _ = live._encode_host(records[:16])
+    walls = _forward_turns({"live": live, "exported": pred}, batch_np)
+    log(f"phase 7: 16-record fusion forward, host wall ms in turns (synchronized): live "
+        f"{walls['live']} (median {statistics.median(walls['live'])}), exported "
+        f"{walls['exported']} (median {statistics.median(walls['exported'])}); {card_line()}")
+    _profile_forwards({"live": live, "exported": pred}, batch_np)
+    pred.close()
+    text_live = Predictor.from_engine_artifacts(root, text_ckpt, text_only=True, **common)
+    text_pred, text_want = _export_and_load(text_live, os.path.join(out_root, "text"),
+                                            "text-only", records)
+    text_pred.close()
+
+    # 3. the predict CLI in a fresh process on the fusion artifact
+    src, dst = os.path.join(out_root, "requests.jsonl"), os.path.join(out_root, "answers.jsonl")
+    with open(src, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in records)
+    edge_max.launches = 0
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mgnns_tpu_torch.cli.predict", "--from_exported", fusion_dir,
+         "--image_backend", "synthetic", "--input", src, "--output", dst],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 7: cli.predict --from_exported failed:\n{proc.stderr[-3000:]}")
+    with open(dst) as f:
+        lines = [json.loads(line) for line in f]
+    if [x["id"] for x in lines] != [r["id"] for r in records]:
+        raise SystemExit("phase 7: cli.predict --from_exported answered other ids")
+    diff = _check_answers("cli.predict --from_exported vs live", lines, want, 1e-5,
+                          "phase 7")
+    log(f"phase 7: cli.predict --from_exported in a fresh process: {cli_s} s of command, labels "
+        f"equal, probabilities max |diff| {diff} against the live Predictor (tolerance 1e-5); "
+        f"K1 launches in this process {edge_max.launches}")
+
+    # 4. the text-only model exported on the CPU, served on the card
+    cpu_live = Predictor.from_engine_artifacts(root, text_ckpt, text_only=True,
+                                               device="cpu", **common)
+    cpu_pred, _ = _export_and_load(cpu_live, os.path.join(out_root, "text_cpu"),
+                                   "text-only (exported on the CPU)", records[:16])
+    diff = _check_answers("CPU-exported text-only vs the card's live", cpu_pred.predict(records),
+                          text_want, 1e-5, "phase 7")
+    log(f"phase 7: the CPU-exported text-only artifact on the card vs the live card Predictor: "
+        f"max |diff| {diff} (tolerance 1e-5)")
+    cpu_live.close()
+    cpu_pred.close()
+    text_live.close()
+
+    # 5. cli.serve --from_exported, one HTTP round trip
+    args = cli_serve.build_parser().parse_args([
+        "--from_exported", fusion_dir, "--image_backend", "synthetic", "--port", "0"])
+    t0 = time.perf_counter()
+    server = cli_serve.make_server(args)
+    start_s = time.perf_counter() - t0
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    host, port = server.server_address[:2]
+    try:
+        edge_max.launches = 0
+        req = urllib.request.Request(
+            f"http://{host}:{port}/predict", data=json.dumps({"records": records[:5]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.loads(r.read())
+        launches = edge_max.launches
+        with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=120) as r:
+            health = json.loads(r.read())
+        diff = _check_answers("HTTP /predict vs live", body["predictions"], want[:5], 1e-5,
+                              "phase 7")
+        log(f"phase 7: cli.serve --from_exported on {host}:{port} (loaded and warmed in "
+            f"{start_s} s): POST /predict 200, 5 records, max |diff| {diff} against the live "
+            f"Predictor, K1 launches {launches}; GET /healthz {health}")
+        if launches != 1 or health.get("model") != fusion_dir or health.get("requests") != 1:
+            raise SystemExit("phase 7: cli.serve --from_exported answered wrongly")
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.frontend.predictor.close()
+        serving.join(30)
+    live.close()
+    log(f"phase 7: K1 through the custom operator, per call back to back (phase 2): "
+        f"{k1['ms'] * 1e3} us; "
+        f"phase {time.perf_counter() - t_phase} s; {card_line()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs an NVIDIA GPU",
@@ -1295,13 +1480,17 @@ def main() -> int:
     setup = phase3(k1)
     p4 = phase4(setup, k1, k2)
     phase4b(p4)
-    phase6(phase5())
+    root = phase5()
+    phase6(root)
+    phase7(root, k1)
 
     log(f"total {time.perf_counter() - t_start} s")
     log(card_line())
     k1["paths"] = ["serving.Predictor", "engine.train.Engine", "cli.main (text-only, fusion)",
                    "serving.Predictor.from_engine_artifacts", "cli.predict",
-                   "serving.BatchingFrontend", "cli.serve", "cli.main --init_from_reference"]
+                   "serving.BatchingFrontend", "cli.serve", "cli.main --init_from_reference",
+                   "export.load_exported", "cli.predict --from_exported",
+                   "cli.serve --from_exported"]
     k2["paths"] = ["engine.train.Engine.train_step", "cli.main (text-only, fusion)",
                    "cli.main --init_from_reference"]
     print(json.dumps({"kernels": [k1, k2]}))

@@ -6,16 +6,23 @@ Input: a JSONL of records with at least a ``text`` field (``image`` and
 "label_id", "probs"}``, in input order.  ``--platform`` is ``cuda`` (the
 default, which raises without a card) or ``cpu``.
 
-Example::
+``--export_model <dir>`` writes the loaded model as a serving artifact
+(:mod:`mgnns_tpu_torch.export`) and, without ``--input``, stops there;
+``--from_exported <dir>`` serves such an artifact in place of a checkpoint,
+with no ``--data_root_path`` or ``--checkpoint``.
+
+Examples::
 
     python -m mgnns_tpu_torch.cli.predict --data_root_path data \\
         --checkpoint checkpoint/mgnns_tpu --text_only \\
         --input posts.jsonl --output preds.jsonl
+    python -m mgnns_tpu_torch.cli.predict --data_root_path data \\
+        --checkpoint checkpoint/mgnns_tpu --text_only --export_model artifact
+    python -m mgnns_tpu_torch.cli.predict --from_exported artifact \\
+        --input posts.jsonl
 
-Not taken yet, each rejected by name: ``--export_model`` and
-``--from_exported`` (serving artifacts through ``torch.export``,
-``ROADMAP.md`` queue 1 item 4) and ``--mesh_data`` / ``--mesh_model`` above
-1 (multi-device, item 6).
+Not taken yet, rejected by name: ``--mesh_data`` / ``--mesh_model`` above 1
+(multi-device, ``ROADMAP.md`` queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -24,7 +31,6 @@ import argparse
 import json
 import sys
 
-EXPORT = "serving artifacts through torch.export wait for ROADMAP.md queue 1 item 4"
 MULTI_DEVICE = "multi-device serving waits for ROADMAP.md queue 1 item 6"
 
 
@@ -33,8 +39,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_root_path", default=None)
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint directory of the training CLI (with its preproc files)")
-    p.add_argument("--from_exported", default=None, help="rejected: item 4")
-    p.add_argument("--export_model", default=None, help="rejected: item 4")
+    p.add_argument("--from_exported", default=None,
+                   help="serve a torch.export artifact directory (see --export_model); "
+                        "--data_root_path/--checkpoint are then not needed")
+    p.add_argument("--export_model", default=None,
+                   help="write a serving artifact (exported program + weights + preproc) "
+                        "to this directory and exit; --input is then not needed")
     p.add_argument("--input", default=None, help="JSONL of {'text', 'image'?, 'id'?}")
     p.add_argument("--output", default=None, help="output JSONL (default stdout)")
     p.add_argument("--text_only", action="store_true")
@@ -54,8 +64,6 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
     """One message for each flag set in ``args`` that the port rejects,
     naming the ``ROADMAP.md`` item that brings it."""
     checks = (
-        ("--export_model", getattr(args, "export_model", None) is not None, EXPORT),
-        ("--from_exported", args.from_exported is not None, EXPORT),
         ("--mesh_data", args.mesh_data != 1, MULTI_DEVICE),
         ("--mesh_model", args.mesh_model != 1, MULTI_DEVICE),
     )
@@ -67,20 +75,34 @@ def main(argv=None) -> None:
     rejected = unported_flags(args)
     if rejected:
         raise SystemExit("not supported by the PyTorch port:\n  " + "\n  ".join(rejected))
-    if not (args.data_root_path and args.checkpoint):
-        raise SystemExit("--data_root_path and --checkpoint are required")
-    if not args.input:
-        raise SystemExit("--input is required")
-    from mgnns_tpu_torch.serving import Predictor
+    if not (args.input or args.export_model):
+        raise SystemExit("--input is required (or pass --export_model)")
+    if args.from_exported:
+        from mgnns_tpu_torch.export import load_exported
 
-    predictor = Predictor.from_engine_artifacts(
-        args.data_root_path, args.checkpoint, text_only=args.text_only,
-        pmi_phase=args.pmi_phase, image_backend=args.image_backend,
-        image_root=args.image_root, max_batch=args.max_batch, step=args.step,
-        device=args.platform)
-    with open(args.input) as f:
-        records = [json.loads(line) for line in f if line.strip()]
+        predictor = load_exported(args.from_exported, image_root=args.image_root,
+                                  image_backend=args.image_backend, device=args.platform)
+    else:
+        if not (args.data_root_path and args.checkpoint):
+            raise SystemExit("--data_root_path and --checkpoint are required "
+                             "(or pass --from_exported)")
+        from mgnns_tpu_torch.serving import Predictor
+
+        predictor = Predictor.from_engine_artifacts(
+            args.data_root_path, args.checkpoint, text_only=args.text_only,
+            pmi_phase=args.pmi_phase, image_backend=args.image_backend,
+            image_root=args.image_root, max_batch=args.max_batch, step=args.step,
+            device=args.platform)
     try:
+        if args.export_model:
+            from mgnns_tpu_torch.export import export_predictor
+
+            export_predictor(predictor, args.export_model)
+            print(f"exported serving artifact to {args.export_model}")
+            if not args.input:
+                return
+        with open(args.input) as f:
+            records = [json.loads(line) for line in f if line.strip()]
         results = predictor.predict(records)
     finally:
         predictor.close()

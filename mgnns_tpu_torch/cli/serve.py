@@ -19,10 +19,14 @@ frontend runs every forward.  Every batch bucket runs once (``warm``) before
 the server listens.  ``--platform`` is ``cuda`` (the default, which raises
 without a card) or ``cpu``.
 
+``--from_exported <dir>`` serves an artifact of ``cli.predict
+--export_model`` (:mod:`mgnns_tpu_torch.export`) in place of a checkpoint.
+
 Usage::
 
     python -m mgnns_tpu_torch.cli.serve --data_root_path data \\
         --checkpoint checkpoint/mgnns_tpu --text_only --port 8080
+    python -m mgnns_tpu_torch.cli.serve --from_exported artifact --port 8080
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_root_path", type=str, default="data")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="checkpoint directory of the training CLI (with its preproc files)")
-    p.add_argument("--from_exported", type=str, default=None, help="rejected: item 4")
+    p.add_argument("--from_exported", type=str, default=None,
+                   help="serve a torch.export artifact directory (cli.predict --export_model) "
+                        "instead of a checkpoint: no model code or tracing at start-up")
     p.add_argument("--text_only", action="store_true")
     p.add_argument("--pmi_phase", type=str, default="train")
     p.add_argument("--image_backend", type=str, default="pil", choices=["pil", "synthetic"])
@@ -115,18 +121,27 @@ def make_server(args) -> ThreadingHTTPServer:
     rejected = unported_flags(args)
     if rejected:
         raise SystemExit("not supported by the PyTorch port:\n  " + "\n  ".join(rejected))
-    if not args.checkpoint:
-        raise SystemExit("--checkpoint is required")
     from mgnns_tpu_torch.serving import BatchingFrontend, Predictor
 
-    predictor = Predictor.from_engine_artifacts(
-        args.data_root_path, args.checkpoint, text_only=args.text_only,
-        pmi_phase=args.pmi_phase, image_backend=args.image_backend,
-        image_root=args.image_root, max_batch=args.max_batch, strict_images=False,
-        reference_ckpt=args.init_from_reference, device=args.platform)
+    if args.from_exported:
+        from mgnns_tpu_torch.export import load_exported
+
+        predictor = load_exported(args.from_exported, image_root=args.image_root,
+                                  image_backend=args.image_backend, strict_images=False,
+                                  device=args.platform)
+        model_name = args.from_exported
+    else:
+        if not args.checkpoint:
+            raise SystemExit("--checkpoint is required (or pass --from_exported)")
+        predictor = Predictor.from_engine_artifacts(
+            args.data_root_path, args.checkpoint, text_only=args.text_only,
+            pmi_phase=args.pmi_phase, image_backend=args.image_backend,
+            image_root=args.image_root, max_batch=args.max_batch, strict_images=False,
+            reference_ckpt=args.init_from_reference, device=args.platform)
+        model_name = args.checkpoint
     predictor.warm()  # every batch bucket once, before the first request
     frontend = BatchingFrontend(predictor, max_queue=args.max_queue)
-    handler = make_handler(frontend, args.checkpoint, predictor.text_only, args.request_timeout)
+    handler = make_handler(frontend, model_name, predictor.text_only, args.request_timeout)
     server = ThreadingHTTPServer((args.host, args.port), handler)
     server.daemon_threads = True
     server.frontend = frontend

@@ -11,14 +11,19 @@ JAX package's ``mgnns_tpu/kernels/edge_max.py``: K1 its ``_kernel``, K2 its
 ``4*B*L*D*4 + 2*B*L*W*4`` (7.8 MB), a few microseconds of HBM time, so at
 the model's sizes the launch dominates.
 
-:func:`window_max_aggregate` is a :class:`WindowMaxAggregate` autograd
-function: for CUDA tensors its forward launches K1 and its backward K2, for
-CPU tensors they run :func:`window_max_aggregate_plain` and
-:func:`window_max_aggregate_backward_plain`; any other device, dtype or
-layout raises.  K2 follows ``jnp.maximum``'s VJP, which differs from
-autograd through ``torch.maximum`` for a NaN message (``==`` is false, so a
-NaN gets nothing); K2 is therefore held against the explicit plain backward,
-not against autograd of the plain forward.
+Both are ``torch.library`` custom operators, so ``torch.export`` records
+them as graph nodes (``mgnns::edge_max_forward``, ``mgnns::edge_max_backward``)
+and an exported program launches K1 when it runs on the card.  Each has a CUDA
+kernel registration (K1 / K2 through :func:`_launch` / :func:`_launch_bwd`),
+a CPU registration (:func:`window_max_aggregate_plain` /
+:func:`window_max_aggregate_backward_plain`) and a fake one that gives the
+output shapes; any other device raises.  The forward's autograd formula calls
+the backward operator on the residuals ``(emb, w, lens)``, the JAX custom
+VJP's.  :func:`window_max_aggregate` checks its inputs and calls the forward
+operator.  K2 follows ``jnp.maximum``'s VJP, which differs from autograd
+through ``torch.maximum`` for a NaN message (``==`` is false, so a NaN gets
+nothing); K2 is therefore held against the explicit plain backward, not
+against autograd of the plain forward.
 """
 
 from __future__ import annotations
@@ -185,40 +190,67 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _forward(emb, w, lens, ngram):
-    """K1 for CUDA tensors, the plain version for CPU tensors."""
-    if emb.device.type == "cuda":
-        return _launch(emb, w, lens, ngram)
+@torch.library.custom_op(
+    "mgnns::edge_max_forward", mutates_args=(), device_types="cpu",
+    schema="(Tensor emb, Tensor w, Tensor lens, int ngram) -> Tensor")
+def edge_max_forward(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor,
+                     ngram: int) -> torch.Tensor:
+    """K1 as an operator; this registration is the CPU one, the plain version."""
     return window_max_aggregate_plain(emb, w, lens, ngram)
 
 
+@edge_max_forward.register_kernel("cuda")
+def _edge_max_forward_cuda(emb, w, lens, ngram):
+    return _launch(emb, w, lens, ngram)
+
+
+@edge_max_forward.register_fake
+def _edge_max_forward_fake(emb, w, lens, ngram):
+    return torch.empty_like(emb)
+
+
+@torch.library.custom_op(
+    "mgnns::edge_max_backward", mutates_args=(), device_types="cpu",
+    schema="(Tensor emb, Tensor w, Tensor lens, Tensor g, int ngram) -> (Tensor, Tensor)")
+def edge_max_backward(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor, g: torch.Tensor,
+                      ngram: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 as an operator; this registration is the CPU one, the plain backward."""
+    return window_max_aggregate_backward_plain(emb, w, lens, g, ngram)
+
+
+@edge_max_backward.register_kernel("cuda")
+def _edge_max_backward_cuda(emb, w, lens, g, ngram):
+    return _launch_bwd(emb, w, lens, g, ngram)
+
+
+@edge_max_backward.register_fake
+def _edge_max_backward_fake(emb, w, lens, g, ngram):
+    return torch.empty_like(emb), torch.empty_like(w)
+
+
 def _backward(emb, w, lens, g, ngram):
-    """K2 for CUDA tensors, the plain backward for CPU tensors."""
+    """K2 (the backward operator) on a checked, contiguous gradient."""
     if g.dtype != torch.float32 or g.shape != emb.shape or g.device != emb.device:
         raise ValueError(f"edge_max backward takes a float32 gradient of shape "
                          f"{tuple(emb.shape)} on {emb.device}, got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
     g = g.contiguous()  # the scatter-max backward hands over a strided view
-    if emb.device.type == "cuda":
-        return _launch_bwd(emb, w, lens, g, ngram)
-    return window_max_aggregate_backward_plain(emb, w, lens, g, ngram)
+    return torch.ops.mgnns.edge_max_backward(emb, w, lens, g, ngram)
 
 
-class WindowMaxAggregate(torch.autograd.Function):
-    """K1 forward and K2 backward; saves ``(emb, w, lens)``, the JAX custom
-    VJP's residuals."""
+def _setup_context(ctx, inputs, output):
+    emb, w, lens, ngram = inputs
+    ctx.ngram = ngram
+    ctx.save_for_backward(emb, w, lens)
 
-    @staticmethod
-    def forward(ctx, emb, w, lens, ngram):
-        ctx.ngram = ngram
-        ctx.save_for_backward(emb, w, lens)
-        return _forward(emb, w, lens, ngram)
 
-    @staticmethod
-    def backward(ctx, g):
-        emb, w, lens = ctx.saved_tensors
-        d_emb, d_w = _backward(emb, w, lens, g, ctx.ngram)
-        return d_emb, d_w, None, None
+def _autograd_backward(ctx, g):
+    emb, w, lens = ctx.saved_tensors
+    d_emb, d_w = _backward(emb, w, lens, g, ctx.ngram)
+    return d_emb, d_w, None, None
+
+
+edge_max_forward.register_autograd(_autograd_backward, setup_context=_setup_context)
 
 
 def window_max_aggregate(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor,
@@ -228,4 +260,4 @@ def window_max_aggregate(emb: torch.Tensor, w: torch.Tensor, lens: torch.Tensor,
     [B, L, D], w f32 [B, L, 2g+1], lens int32 [B] with values in [0, L], all
     contiguous."""
     _check(emb, w, lens, ngram)
-    return WindowMaxAggregate.apply(emb, w, lens, ngram)
+    return torch.ops.mgnns.edge_max_forward(emb, w, lens, ngram)

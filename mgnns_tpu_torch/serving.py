@@ -60,6 +60,18 @@ def resolve_batch_buckets(requested: list[int] | None, max_batch: int) -> list[i
     return buckets
 
 
+def eval_probs(params: dict, batch_stats: dict | None, consts: dict | None, batch: dict, *,
+               text_only: bool, ngram: int, cfg: ModelConfig | None) -> torch.Tensor:
+    """The serving forward: the model's eval forward and a float32 softmax
+    over the labels, [B, num_labels].  :class:`Predictor` runs it, and
+    :mod:`mgnns_tpu_torch.export` exports it."""
+    if text_only:
+        logits = text_model_apply(params, batch, ngram=ngram)
+    else:
+        logits = mgnns_apply(params, batch_stats, consts, batch, cfg=cfg)[0]
+    return torch.softmax(logits.float(), dim=-1)
+
+
 class Predictor:
     def __init__(
         self,
@@ -79,14 +91,22 @@ class Predictor:
         strict_images: bool = True,
         batch_buckets: list[int] | None = None,
         decode_threads: int | None = None,
+        forward_fn=None,
+        image_size: int | None = None,
         device="cuda",
     ):
         """``params``: the text-only model's (``text_only=True``) or the
         fusion model's, e.g. from :mod:`mgnns_tpu_torch.convert`; the fusion
         model also takes its ``batch_stats``, ``consts`` and ``cfg``.
+        ``forward_fn(params, batch_stats, batch) -> probs`` replaces the
+        model's eval forward and softmax (:func:`eval_probs`), as the JAX
+        Predictor's ``apply_fn`` does; an exported program
+        (:func:`mgnns_tpu_torch.export.load_exported`) needs no ``consts`` or
+        ``cfg``, only the ``image_size`` it was exported at.
         Everything is moved to ``device``, which raises when it is CUDA and
         no card is present."""
-        if not text_only and (batch_stats is None or consts is None or cfg is None):
+        if forward_fn is None and not text_only and (
+                batch_stats is None or consts is None or cfg is None):
             raise ValueError("the fusion model needs batch_stats, consts and cfg")
         self.device = resolve_device(device)
         self.vocab = vocab
@@ -98,7 +118,10 @@ class Predictor:
         self.batch_stats = tree_to(batch_stats, self.device) if batch_stats is not None else None
         self.consts = tree_to(consts, self.device) if consts is not None else None
         self.cfg = cfg
-        self.image_size = cfg.image_size if cfg is not None else 0
+        self.forward_fn = forward_fn
+        if image_size is None:
+            image_size = cfg.image_size if cfg is not None else 0
+        self.image_size = image_size
         self.image_backend = image_backend
         self.image_root = image_root
         self.max_batch = max_batch
@@ -183,12 +206,12 @@ class Predictor:
         t0 = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch_np.items()}
         with torch.inference_mode():
-            if self.text_only:
-                logits = text_model_apply(self.params, batch, ngram=self.graph_cfg.ngram)
+            if self.forward_fn is not None:
+                probs = self.forward_fn(self.params, self.batch_stats, batch)
             else:
-                logits = mgnns_apply(self.params, self.batch_stats, self.consts, batch,
-                                     cfg=self.cfg)[0]
-            probs = torch.softmax(logits.float(), dim=-1)
+                probs = eval_probs(self.params, self.batch_stats, self.consts, batch,
+                                   text_only=self.text_only, ngram=self.graph_cfg.ngram,
+                                   cfg=self.cfg)
         self.last_timings["forward_dispatch_ms"] = (time.perf_counter() - t0) * 1e3
         return probs
 

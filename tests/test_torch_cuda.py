@@ -315,3 +315,60 @@ def test_text_checkpoint_served_on_card_with_k1_per_forward(cuda_device, tmp_pat
         t.join(60)
         assert not t.is_alive()
     assert edge_max.launches == len(chunks) > 0 and fe.stats()["requests"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ngram", [0, 1, 4])
+def test_opcheck_on_card(cuda_device, ngram):
+    """``torch.library.opcheck`` on both operators with CUDA tensors: K1 and
+    K2 behind the schema, the fake registrations and the autograd formula."""
+    emb, w, lens, up = _k2_inputs((3, 9, 8, ngram), cuda_device, seed=ngram)
+    emb[-1].nan_to_num_(0.0)  # the gradient check compares finite values
+    torch.library.opcheck(torch.ops.mgnns.edge_max_forward.default, (emb, w, lens, ngram))
+    torch.library.opcheck(torch.ops.mgnns.edge_max_forward.default,
+                          (emb.clone().requires_grad_(), w.clone().requires_grad_(), lens, ngram))
+    torch.library.opcheck(torch.ops.mgnns.edge_max_backward.default, (emb, w, lens, up, ngram))
+
+
+@pytest.mark.cuda
+def test_exported_text_program_launches_k1_per_forward(cuda_device, tmp_path):
+    """A text-only Predictor exported on the card and loaded again: K1 once
+    per forward of the program, and the live answers within 1e-5."""
+    from mgnns_tpu_torch.config import TextGraphConfig
+    from mgnns_tpu_torch.export import export_predictor, load_exported
+    from mgnns_tpu_torch.graphs.pmi import cal_pmi
+    from mgnns_tpu_torch.graphs.vocab import build_vocab
+    from mgnns_tpu_torch.serving import Predictor
+
+    corpus = ["happy joy smile great day", "sad cry tears bad day", "joy smile happy fun"]
+    vocab = build_vocab(corpus, 1)
+    graph = cal_pmi(corpus, vocab, window_size=3, min_cooccurrence=1)
+    live = Predictor(vocab=vocab, graph=graph, graph_cfg=TextGraphConfig(),
+                     label_map={"a": 0, "b": 1},
+                     params=text_model_init(len(vocab), 2, graph.num_edges, seed=2, device="cpu"),
+                     text_only=True, max_batch=8, device=cuda_device)
+    export_predictor(live, str(tmp_path / "art"))
+    pred = load_exported(str(tmp_path / "art"))
+    records = [{"id": i, "text": corpus[i % 3] + " unknown" * (i % 2)} for i in range(20)]
+    edge_max.launches = 0
+    got = pred.predict(records)
+    assert edge_max.launches == 3
+    want = live.predict(records)
+    for g_, w_ in zip(got, want):
+        assert g_["label"] == w_["label"]
+        assert max(abs(g_["probs"][k] - w_["probs"][k]) for k in w_["probs"]) <= 1e-5
+    pred.close()
+    live.close()
+
+
+@pytest.mark.cuda
+def test_one_train_step_launches_k1_and_k2_once(cuda_device):
+    """K2 behind the backward operator: one Engine step launches K1 once and
+    K2 once, as before the operators."""
+    from mgnns_tpu_torch.engine.metrics import confusion_init
+
+    engine, batches = _text_train_setup(cuda_device)
+    edge_max.launches = edge_max.bwd_launches = 0
+    engine.train_step(batches[0], confusion_init(7, cuda_device))
+    torch.cuda.synchronize()
+    assert (edge_max.launches, edge_max.bwd_launches) == (1, 1)

@@ -95,10 +95,11 @@ def test_predictor_runs_on_cpu_when_asked():
 
 @pytest.mark.parametrize("entry", ["text_model_init", "mgnns_init", "to_torch",
                                    "import_reference_state_dict", "from_engine_artifacts",
-                                   "positional_encoding_table"])
+                                   "positional_encoding_table", "load_exported"])
 def test_constructors_default_to_cuda_and_raise_without_it(no_cuda, entry, tmp_path):
     from mgnns_tpu_torch import convert
     from mgnns_tpu_torch.config import ModelConfig
+    from mgnns_tpu_torch.export import load_exported
     from mgnns_tpu_torch.models.import_reference import import_reference_state_dict
     from mgnns_tpu_torch.models.mgnns import mgnns_init
     from mgnns_tpu_torch.models.text_only import text_model_init
@@ -118,6 +119,8 @@ def test_constructors_default_to_cuda_and_raise_without_it(no_cuda, entry, tmp_p
             import_reference_state_dict({})
         elif entry == "from_engine_artifacts":
             Predictor.from_engine_artifacts(str(tmp_path), str(tmp_path), text_only=True)
+        elif entry == "load_exported":
+            load_exported(str(tmp_path))
         else:
             positional_encoding_table(4)
 
@@ -145,18 +148,23 @@ def test_unknown_compute_dtype_raises():
         ModelConfig(compute_dtype="float16")
 
 
-@pytest.mark.parametrize("cli", ["main", "predict", "serve"])
+@pytest.mark.parametrize("cli", ["main", "predict", "serve", "predict --export_model",
+                                 "predict --from_exported", "serve --from_exported"])
 def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, cli, tmp_path):
     """The training, predict and serve CLIs run on the card unless given
-    --platform cpu."""
+    --platform cpu, also when they write or serve an exported artifact."""
     from mgnns_tpu_torch.cli import main, predict, serve
 
     argv = {"main": ["--text_only"],
             "predict": ["--checkpoint", str(tmp_path), "--input", "x.jsonl", "--text_only"],
-            "serve": ["--checkpoint", str(tmp_path), "--text_only", "--port", "0"]}[cli]
+            "serve": ["--checkpoint", str(tmp_path), "--text_only", "--port", "0"],
+            "predict --export_model": ["--checkpoint", str(tmp_path), "--text_only",
+                                       "--export_model", str(tmp_path / "art")],
+            "predict --from_exported": ["--from_exported", str(tmp_path), "--input", "x.jsonl"],
+            "serve --from_exported": ["--from_exported", str(tmp_path), "--port", "0"]}[cli]
+    entry = {"main": main, "predict": predict, "serve": serve}[cli.split()[0]]
     with pytest.raises(RuntimeError, match="cuda"):
-        {"main": main, "predict": predict, "serve": serve}[cli].main(
-            ["--data_root_path", str(tmp_path)] + argv)
+        entry.main(["--data_root_path", str(tmp_path)] + argv)
 
 
 @pytest.mark.parametrize("entry", ["engine", "loader", "checkpoint_restore"])

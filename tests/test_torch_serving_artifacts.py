@@ -193,9 +193,7 @@ def test_predict_cli_writes_the_jsonl_of_predict(runs, tmp_path):
     _assert_same_answers(got, want)
 
 
-@pytest.mark.parametrize("flag,item", [(["--export_model", "x"], "item 4"),
-                                       (["--from_exported", "x"], "item 4"),
-                                       (["--mesh_data", "2"], "item 6"),
+@pytest.mark.parametrize("flag,item", [(["--mesh_data", "2"], "item 6"),
                                        (["--mesh_model", "2"], "item 6")])
 def test_predict_cli_rejects_unported_flags_naming_their_item(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 {item}"):
