@@ -70,7 +70,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    fusion model timed in turns and profiled once each (device busy, kernel
    launches, host ops by self time); ``cli.predict --from_exported`` in a fresh
    process within 1e-5; a text-only model exported on the CPU and served on
-   the card (K1 counted); ``cli.serve --from_exported`` over loopback.
+   the card (K1 counted); ``cli.serve --from_exported`` over loopback;
+8. device-resident training through captured steps: the full-width fusion
+   model (phase 3's vocabulary and label graphs, dropout 0.5, Adam, batch
+   16) trains 64 records from device tables (``DeviceLoader(device_text=
+   True, device_images=True)``), float32 and then bf16 trunks, so that each
+   epoch runs as CUDA-graph replays of the whole train step
+   (``mgnns_tpu_torch.engine.graphs``), and the same model from the same
+   weights trains on the loop path beside it: one epoch of 4 steps each,
+   whose per-step losses and parameters must agree within 1e-6 of scale,
+   and 32 records of eval through a captured eval step, whose predictions
+   must be equal; then both paths in turns (loop, graph, graph, loop) for
+   the per-step wall time, and one profiled epoch of the graph path for the
+   device busy time, idle share, launches, and K1 and K2 once per replay; capture
+   seconds and peak memory; last ``cli.main --device_text --device_images
+   --cache_eval_batches --profile_dir`` on phase 5's tree for 2 epochs at
+   bf16, which must print its budget line, run every epoch through captured
+   steps and leave a trace with K1 and K2 events.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -80,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -393,7 +410,7 @@ def device_kernels(prof):
     model's and the engine's named ranges is left out)."""
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(("mgnns.", "engine."))]
+            and not e.key.startswith(("mgnns.", "engine.", "ProfilerStep"))]
 
 
 def profile_forward(pred: Predictor, batch_np: dict) -> None:
@@ -628,7 +645,6 @@ def _timed_step(engine: Engine, batch: dict) -> dict:
         engine.opt.apply(leaves, list(grads), engine.opt_state)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    engine.batch_stats = new_bs
     times.update(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
                  optimizer_ms=(t3 - t2) * 1e3)
     return times
@@ -808,14 +824,14 @@ def phase4(setup: dict, k1: dict, k2: dict) -> dict:
         loss = float(engine.train_step(batch, cm))
         step_ms.append((time.perf_counter() - t0) * 1e3)
         first = loss if first is None else first
-    log(f"phase 4: 10 Adam steps (lr {engine.opt.schedule(engine.opt_state['count'])}, lrp 0.1) "
+    log(f"phase 4: 10 Adam steps (base lr {-engine.opt.neg_lrs[0]}, lrp 0.1) "
         f"on one 16-record batch: loss {first} -> {loss}; step ms (host clock, loss read each "
         f"step) {step_ms}, median after the first {statistics.median(step_ms[1:])}; {card_line()}")
     if not loss < first:
         raise SystemExit("phase 4: 10 steps on one batch did not lower its loss")
 
-    # what the nan-guard's per-step host read of isfinite(loss) costs: steps
-    # with and without it, in turns
+    # what the nan-guard's device-side selects cost: steps with and without
+    # it, in turns
     guard_ms: dict = {True: [], False: []}
     for guard in (True, False, False, True, True, False, False, True):
         engine.nan_guard = guard
@@ -1443,6 +1459,240 @@ def phase7(root: str, k1: dict) -> None:
         f"phase {time.perf_counter() - t_phase} s; {card_line()}")
 
 
+# ------------------------------------------------------------------ phase 8
+
+P8_TRAIN, P8_VAL = 64, 32
+
+
+def _tree_error(got, want) -> float:
+    """Max over leaves of max |got - want| / the leaf's scale."""
+    return max(float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-12)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: its default float32 weight-gradient
+    algorithm adds with atomics, so that two runs of the same steps differ."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _profiled_epoch(run) -> dict:
+    """Device busy time, kernel launches and K1 / K2 launches of ``run()``
+    (an epoch), from the profiler's device events of its second call (a
+    first, warm-up cycle: events at the very start of a trace can be lost)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got: dict = {}
+    torch.cuda.synchronize()
+    # the events of a cycle are read when it ends: the profiler clears them
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: got.update(kernels=device_kernels(p))) as prof:
+        for _ in range(2):
+            out = run()
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = got["kernels"]
+    count = lambda name: sum(e.count for e in kernels if name in e.key)  # noqa: E731
+    return {"out": out, "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "launches": sum(e.count for e in kernels), "k1": count("edge_max_fwd_kernel"),
+            "k2": count("edge_max_bwd_kernel")}
+
+
+def _phase8_dtype(setup: dict, workdir: str, dtype: str) -> dict:
+    """Graph path and loop path of one precision from the same weights, in
+    turns: losses and parameters compared, then timed and profiled."""
+    cfg = dataclasses.replace(setup["cfg"], compute_dtype=dtype)
+    vocab, graph, texts = setup["vocab"], setup["graph"], setup["texts"]
+    r = np.random.default_rng(8)
+    params, stats, consts = mgnns_init(
+        cfg, num_edges=graph.num_edges,
+        label_embedding=r.standard_normal((7, 300)).astype(np.float32),
+        object_A=setup["object_A"], place_A=setup["place_A"],
+        object_inp=r.standard_normal((80, 300)).astype(np.float32),
+        place_inp=r.standard_normal((365, 300)).astype(np.float32), seed=8, device="cuda")
+    data_cfg = DataConfig(data_root_path=workdir, image_backend="synthetic")
+    train_ds = TumblrDataset(data_cfg, TextGraphConfig(), "train", vocab, graph,
+                             image_size=cfg.image_size, train_transforms=True,
+                             records=_records(texts, P8_TRAIN, 500, r))
+    val_ds = TumblrDataset(data_cfg, TextGraphConfig(), "val", vocab, graph,
+                           image_size=cfg.image_size, records=_records(texts, P8_VAL, 600, r))
+
+    def apply_fn(p, bs, batch, *, train, generator):
+        logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=cfg, train=train,
+                                          generator=generator)
+        return logits, new_bs, aux.get("head_diversity", 0.0)
+
+    steps = P8_TRAIN // TRAIN_BATCH
+    kw = dict(num_classes=len(LABELS), steps_per_epoch=steps, aux_loss_weight=0.1, device="cuda")
+    engines = {"graph": Engine(apply_fn, params, stats, **kw),
+               "loop": Engine(apply_fn, tree_map(torch.clone, params), stats, **kw)}
+    loaders = {
+        "graph": (DeviceLoader(train_ds, TRAIN_BATCH, shuffle=True, seed=0, device_text=True,
+                               device_images=True, device="cuda"),
+                  DeviceLoader(val_ds, TRAIN_BATCH, device_text=True, device_images=True,
+                               device="cuda")),
+        "loop": (DeviceLoader(train_ds, TRAIN_BATCH, shuffle=True, seed=0, device="cuda"),
+                 DeviceLoader(val_ds, TRAIN_BATCH, device="cuda"))}
+    res: dict = {"dtype": dtype}
+
+    def compare(g: dict, lp: dict, key: str) -> None:
+        res[key] = {
+            "losses": {"graph": g["step_losses"], "loop": lp["step_losses"]},
+            "loss_err": max(abs(a - b) / abs(b)
+                            for a, b in zip(g["step_losses"], lp["step_losses"])),
+            "param_err": _tree_error(engines["graph"].params, engines["loop"].params),
+            "stats_err": _tree_error(engines["graph"].batch_stats, engines["loop"].batch_stats),
+            "equal": g["step_losses"] == lp["step_losses"] and all(
+                torch.equal(a, b) for a, b in zip(engines["graph"]._state_tensors(),
+                                                  engines["loop"]._state_tensors()))}
+        if not all(math.isfinite(v) for v in g["step_losses"] + lp["step_losses"]) \
+                or g["skipped_steps"] or lp["skipped_steps"]:
+            raise SystemExit(f"phase 8 {dtype}: a non-finite loss or a skipped step")
+
+    # (a) one epoch of each path from the same weights, train and eval, with
+    # cuDNN's deterministic algorithms, so that the two may be compared bit
+    # for bit
+    with deterministic_cudnn():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        edge_max.launches = edge_max.bwd_launches = 0
+        first = {"graph": engines["graph"].train_epoch(loaders["graph"][0])}
+        torch.cuda.synchronize()
+        res["peak_bytes_graph"] = torch.cuda.max_memory_allocated()
+        res["wrapper_calls_capture"] = (edge_max.launches, edge_max.bwd_launches)
+        torch.cuda.reset_peak_memory_stats()
+        first["loop"] = engines["loop"].train_epoch(loaders["loop"][0])
+        torch.cuda.synchronize()
+        res["peak_bytes_loop"] = torch.cuda.max_memory_allocated()
+        if not (first["graph"].get("fused") and "fused" not in first["loop"]):
+            raise SystemExit(f"phase 8 {dtype}: the table loader did not take the plan path")
+        compare(first["graph"], first["loop"], "deterministic")
+        ev = {k: engines[k].eval_epoch(loaders[k][1], collect_preds=True)
+              for k in ("graph", "loop")}
+    res["capture_s"] = first["graph"]["capture_seconds"]
+    res["eval_capture_s"] = ev["graph"]["capture_seconds"]
+    res["eval_preds_equal"] = bool(np.array_equal(ev["graph"]["preds"], ev["loop"]["preds"]))
+    res["eval_loss"] = {k: ev[k]["loss"] for k in ev}
+    # the graphs keep the algorithms of their capture: capture again with
+    # cuDNN's default ones
+    engines["graph"]._graphs.clear()
+
+    # (b) per-step wall time in turns, under the defaults; the first two
+    # turns start from the same state, so they compare the paths once more
+    walls: dict = {"graph": [], "loop": []}
+    turns = {}
+    for path in ("loop", "graph", "graph", "loop"):
+        out = engines[path].train_epoch(loaders[path][0])
+        walls[path].append(out["epoch_seconds"] / steps * 1e3)
+        if path not in turns:
+            turns[path] = out
+            if len(turns) == 2:
+                compare(turns["graph"], turns["loop"], "default")
+                res["recapture_s"] = turns["graph"]["capture_seconds"]
+    eval_walls: dict = {"graph": [], "loop": []}
+    for path in ("loop", "graph", "graph", "loop"):
+        out = engines[path].eval_epoch(loaders[path][1])
+        eval_walls[path].append(out["epoch_seconds"] / len(loaders[path][1]) * 1e3)
+    # the graph path profiled (phase 4 profiles a loop step)
+    res["train_loop"] = {"wall_ms_per_step": statistics.median(walls["loop"]),
+                         "walls": walls["loop"]}
+    res["eval_loop"] = {"wall_ms_per_forward": statistics.median(eval_walls["loop"]),
+                        "walls": eval_walls["loop"]}
+    ld_train, ld_val = loaders["graph"]
+    prof = _profiled_epoch(lambda: engines["graph"].train_epoch(ld_train))
+    wall = statistics.median(walls["graph"])
+    res["train_graph"] = {
+        "wall_ms_per_step": wall, "walls": walls["graph"],
+        "busy_ms_per_step": prof["busy_ms"] / steps,
+        "idle_share": 1 - prof["busy_ms"] / steps / wall,
+        "launches_per_step": prof["launches"] / steps,
+        "k1_per_step": prof["k1"] / steps, "k2_per_step": prof["k2"] / steps}
+    nb = len(ld_val)
+    prof = _profiled_epoch(lambda: engines["graph"].eval_epoch(ld_val))
+    wall = statistics.median(eval_walls["graph"])
+    res["eval_graph"] = {
+        "wall_ms_per_forward": wall, "walls": eval_walls["graph"],
+        "busy_ms_per_forward": prof["busy_ms"] / nb,
+        "idle_share": 1 - prof["busy_ms"] / nb / wall,
+        "launches_per_forward": prof["launches"] / nb, "k1_per_forward": prof["k1"] / nb}
+    return res
+
+
+def phase8(setup: dict, root: str) -> None:
+    """Device-resident training through captured steps (see the module's
+    docstring)."""
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="mgnns_graphs_")
+    with open(os.path.join(workdir, "label.json"), "w") as f:
+        json.dump(LABELS, f)
+    failed = []  # checked after the CLI run, so that one call reports everything
+    for dtype in ("float32", "bfloat16"):
+        res = _phase8_dtype(setup, workdir, dtype)
+        for mode in ("deterministic", "default"):
+            c = res[mode]
+            log(f"phase 8 {dtype}: graph path vs loop path, one epoch of 4 steps from the same "
+                f"state at dropout 0.5, cuDNN {mode} algorithms: bit-equal {c['equal']}; step "
+                f"losses graph {c['losses']['graph']} loop {c['losses']['loop']}; max relative "
+                f"loss difference {c['loss_err']}, parameters {c['param_err']} and BN "
+                f"statistics {c['stats_err']} of each leaf's scale")
+        log(f"phase 8 {dtype}: capture {res['capture_s']} s (train, deterministic cuDNN), "
+            f"{res['recapture_s']} s (train, default), {res['eval_capture_s']} s (eval); "
+            f"wrapper calls during capture (K1, K2) {res['wrapper_calls_capture']}; peak device "
+            f"memory graph epoch {res['peak_bytes_graph']} bytes, loop epoch "
+            f"{res['peak_bytes_loop']} bytes; {card_line()}")
+        log(f"phase 8 {dtype}: eval graph vs loop: predictions equal {res['eval_preds_equal']}, "
+            f"loss {res['eval_loss']}")
+        for key in ("train_graph", "train_loop", "eval_graph", "eval_loop"):
+            log(f"phase 8 {dtype}: {key}: {res[key]}; {card_line()}")
+        g = res["train_graph"]
+        if not (g["k1_per_step"] == 1 and g["k2_per_step"] == 1
+                and res["eval_graph"]["k1_per_forward"] == 1):
+            failed.append(f"{dtype}: a replay did not launch K1 and K2 once each")
+        c = res["deterministic"]
+        if not (res["eval_preds_equal"] and c["loss_err"] <= 1e-6 and c["param_err"] <= 1e-6):
+            failed.append(f"{dtype}: the graph path disagrees with the loop path")
+
+    # (c) the CLI with every table flag and a trace of the first epoch
+    trace_dir = os.path.join(root, "trace")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = run_cli(root, "fusion_tables",
+                      ["--limit_samples", "32", "--epochs", "2", "-b", "16",
+                       "--compute_dtype", "bfloat16", "--device_text",
+                       "--device_images", "--cache_eval_batches", "--profile_dir", trace_dir],
+                      forwards=3 * 3, steps=3, phase="phase 8")
+    text = buf.getvalue()
+    log(text.rstrip())
+    budget = [line for line in text.splitlines() if line.startswith("device_images:")]
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+              if f.endswith(".pt.trace.json")]
+    names = []
+    for path in traces:
+        with open(path) as f:
+            names += [e.get("name", "") for e in json.load(f).get("traceEvents", [])
+                      if e.get("cat") == "kernel"]
+    k1 = sum("edge_max_fwd_kernel" in n for n in names)
+    k2 = sum("edge_max_bwd_kernel" in n for n in names)
+    fused = [h["train"].get("fused") and h["val"].get("fused") for h in res["history"]]
+    log(f"phase 8: CLI with the table flags: budget line {budget}; trace files {traces}; kernel "
+        f"events in the trace {len(names)}, K1 {k1}, K2 {k2} (2 warm-up steps and 2 replays); "
+        f"epochs through captured steps {fused}")
+    if budget != ["device_images: 3/3 split tables within 7.0 GB budget"] or not all(fused):
+        raise SystemExit("phase 8: the CLI did not put every split in tables and replay them")
+    if not (k1 >= 2 and k2 >= 2):
+        raise SystemExit("phase 8: the first epoch's trace holds no K1 or K2 events")
+    log(f"phase 8: {time.perf_counter() - t_phase} s; {card_line()}")
+    if failed:
+        raise SystemExit("phase 8: " + "; ".join(failed))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs an NVIDIA GPU",
@@ -1483,6 +1733,7 @@ def main() -> int:
     root = phase5()
     phase6(root)
     phase7(root, k1)
+    phase8(setup, root)
 
     log(f"total {time.perf_counter() - t_start} s")
     log(card_line())
@@ -1490,9 +1741,13 @@ def main() -> int:
                    "serving.Predictor.from_engine_artifacts", "cli.predict",
                    "serving.BatchingFrontend", "cli.serve", "cli.main --init_from_reference",
                    "export.load_exported", "cli.predict --from_exported",
-                   "cli.serve --from_exported"]
+                   "cli.serve --from_exported",
+                   "engine.graphs (captured train and eval steps over device tables)",
+                   "cli.main --device_text --device_images"]
     k2["paths"] = ["engine.train.Engine.train_step", "cli.main (text-only, fusion)",
-                   "cli.main --init_from_reference"]
+                   "cli.main --init_from_reference",
+                   "engine.graphs (captured train steps over device tables)",
+                   "cli.main --device_text --device_images"]
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

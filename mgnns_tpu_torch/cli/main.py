@@ -7,7 +7,11 @@ one of three things:
 - acts as in the JAX package: the model, data, optimizer, precision
   (``--compute_dtype``, ``--fp16``), checkpoint, result and resume flags,
   reference checkpoints included (``--init_from_reference``,
-  ``--resume <x.pth[.tar]>``, ``--include_dead_modules``);
+  ``--resume <x.pth[.tar]>``, ``--include_dead_modules``), the device
+  tables (``--device_text``, ``--device_images`` under the greedy
+  ``--device_images_budget_gb``, ``--cache_eval_batches``; a split held
+  wholly in tables trains and evaluates as captured steps on the card) and
+  ``--profile_dir`` (a ``torch.profiler`` trace of the first epoch);
 - is parsed and ignored, as the JAX package ignores it or because it only
   changes how XLA lowers the maths: ``--unroll_trunks``, ``--stem_s2d``,
   ``--device_ids``, ``--momentum``, ``--accumulation_steps``,
@@ -34,9 +38,9 @@ import pickle
 import numpy as np
 import torch
 
-_GRAPH_CAPTURE = ("XLA dispatch machinery of the JAX package; its counterpart in the port, "
-                  "CUDA-graph capture of the train step with device-resident loader tables, "
-                  "is ROADMAP.md queue 1 item 5")
+_FUSED_SEGMENTS = ("splits the JAX package's whole-epoch XLA program when it does not compile; "
+                   "its counterpart in the port is one captured train step replayed once per "
+                   "batch (mgnns_tpu_torch/engine/graphs.py), which has no epoch program to split")
 _MULTI_DEVICE = "waits for multi-device training, ROADMAP.md queue 1 item 6"
 _TPU_COMPILER = ("a TPU compiler flag; its counterpart in the port is the nvcc build of the "
                  "kernels (mgnns_tpu_torch/kernels/build.py), which takes no flags")
@@ -74,15 +78,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--batch-size", dest="batch_size", type=int, default=16)
     p.add_argument("--eval_batch_size", type=int, default=0,
                    help="batch size for val/test epochs (0 = same as train)")
-    p.add_argument("--cache_eval_batches", action="store_true", help="rejected: XLA-only")
+    p.add_argument("--cache_eval_batches", action="store_true",
+                   help="keep val/test batches on the device after their first epoch, within "
+                        "what --device_images_budget_gb leaves")
     p.add_argument("--no_augmentation", action="store_true",
                    help="use eval transforms (Warp) for the train split too")
-    p.add_argument("--device_images", action="store_true", help="rejected: XLA-only")
-    p.add_argument("--device_text", action="store_true", help="rejected: XLA-only")
+    p.add_argument("--device_images", action="store_true",
+                   help="keep each split's pixels in a device table, train first, while they "
+                        "fit --device_images_budget_gb")
+    p.add_argument("--device_text", action="store_true",
+                   help="keep each split's text tensors and labels in device tables")
     p.add_argument("--device_images_budget_gb", type=float, default=7.0,
-                   help="rejected unless left at its default: XLA-only")
+                   help="device memory for pixel tables and cached eval batches")
     p.add_argument("--fused_segments", type=int, default=1,
-                   help="rejected unless left at its default: XLA-only")
+                   help="rejected unless left at its default: see its message")
     p.add_argument("--val_limit", type=int, default=0,
                    help="evaluate only the first N val samples per epoch")
     p.add_argument("--lr", "--learning-rate", dest="lr", type=float, default=5e-5)
@@ -162,7 +171,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--freeze_trunks", action="store_true",
                    help="no trunk gradients, trunk parameters frozen")
     p.add_argument("--stem_s2d", action="store_true", help="ignored (an XLA lowering choice)")
-    p.add_argument("--profile_dir", type=str, default=None, help="rejected: item 5")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the first epoch's training here")
     p.add_argument("--metrics_path", type=str, default=None,
                    help="append one JSON line of train/val metrics per epoch")
     p.add_argument("--libtpu_init_args", type=str, default=None, help="rejected: TPU-only")
@@ -174,11 +184,7 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
     """One message for each flag set in ``args`` that the port rejects, naming
     its counterpart or the ``ROADMAP.md`` item that brings it."""
     checks = (
-        ("--device_images", args.device_images, _GRAPH_CAPTURE),
-        ("--device_text", args.device_text, _GRAPH_CAPTURE),
-        ("--device_images_budget_gb", args.device_images_budget_gb != 7.0, _GRAPH_CAPTURE),
-        ("--cache_eval_batches", args.cache_eval_batches, _GRAPH_CAPTURE),
-        ("--fused_segments", args.fused_segments != 1, _GRAPH_CAPTURE),
+        ("--fused_segments", args.fused_segments != 1, _FUSED_SEGMENTS),
         ("--use_pallas/--no_use_pallas", args.use_pallas is not None,
          "the edge-max kernels (K1, K2) always run on the card; their counterpart is "
          "mgnns_tpu_torch/kernels/edge_max.py, whose plain versions run only on CPU tensors"),
@@ -187,8 +193,6 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
         ("--mesh_data", args.mesh_data != 1, _MULTI_DEVICE),
         ("--mesh_model", args.mesh_model != 1, _MULTI_DEVICE),
         ("--multihost", args.multihost, _MULTI_DEVICE),
-        ("--profile_dir", args.profile_dir is not None,
-         "a torch.profiler trace of the first epoch waits for ROADMAP.md queue 1 item 5"),
     )
     return [f"{flag}: {why}" for flag, on, why in checks if on]
 
@@ -354,17 +358,42 @@ def main(argv=None) -> dict:
         max_to_keep=args.max_to_keep, device=device,
     )
 
+    # the greedy device-memory budget of the JAX CLI: pixel tables go to the
+    # splits in order, train first (it is read every epoch), while they fit;
+    # the splits past the budget stream their pixels, and cached eval batches
+    # share what is left
+    input_budget = args.device_images_budget_gb * 1e9
+    device_images_for: dict = {}
+    if args.device_images:
+        for ds in (train_ds, val_ds, test_ds):
+            if id(ds) in device_images_for:
+                continue
+            size = len(ds) * args.image_size * args.image_size * 3
+            grant = size <= input_budget and ds.cacheable_images()
+            device_images_for[id(ds)] = grant
+            if grant:
+                input_budget -= size
+        print(f"device_images: {sum(device_images_for.values())}/{len(device_images_for)} split "
+              f"tables within {args.device_images_budget_gb} GB budget")
+
     loaders: dict = {}
 
-    def loader(ds, shuffle):
+    def loader(ds, shuffle, reused=True):
         # one loader per (split, shuffle): its epoch counter advances every
         # iteration, so shuffling and augmentation differ per epoch
         key = (id(ds), shuffle)
         if key not in loaders:
+            dev_imgs = device_images_for.get(id(ds), False)
             loaders[key] = DeviceLoader(
                 ds, args.batch_size if shuffle else (args.eval_batch_size or args.batch_size),
                 shuffle=shuffle, seed=args.seed, num_threads=args.workers,
-                with_images=not args.text_only, device=device)
+                with_images=not args.text_only,
+                # a cache pays only for a loader read more than once (or whose
+                # pixels are in a table, which makes its batches small)
+                cache_device_batches=(args.cache_eval_batches and not shuffle
+                                      and (reused or dev_imgs)),
+                cache_budget_bytes=int(input_budget / max(1, len({id(val_ds), id(test_ds)}))),
+                device_images=dev_imgs, device_text=args.device_text, device=device)
         ld = loaders[key]
         return lambda: ld
 
@@ -403,13 +432,22 @@ def main(argv=None) -> dict:
         "pred": os.path.join(args.save_pred_result_path, args.model_name, tag),
         "label_names": list(label_map),
     }
-    return engine.learning(
-        loader(train_ds, True), loader(val_ds, False),
-        loader(test_ds, False) if args.evaluate else None,
-        max_epochs=args.epochs, resume=args.resume == "latest", log_every=args.print_freq,
-        result_paths=result_paths if args.evaluate else None, run_config=run_config,
-        metrics_path=args.metrics_path,
-    )
+    try:
+        return engine.learning(
+            loader(train_ds, True), loader(val_ds, False),
+            loader(test_ds, False, reused=test_ds is val_ds) if args.evaluate else None,
+            max_epochs=args.epochs, resume=args.resume == "latest", log_every=args.print_freq,
+            result_paths=result_paths if args.evaluate else None, run_config=run_config,
+            profile_dir=args.profile_dir, metrics_path=args.metrics_path,
+        )
+    except torch.OutOfMemoryError as e:
+        if not (args.device_images or args.device_text):
+            raise
+        raise SystemExit(
+            "out of device memory: the input tables plus the train step's memory exceed the "
+            "card at this config. Options: drop --device_images (pixels uploaded per batch), "
+            "lower --device_images_budget_gb, or shrink the step (--freeze_trunks, "
+            "--remat_policy block, a smaller -b or --image-size).") from e
 
 
 def cli(argv=None) -> int:

@@ -16,10 +16,23 @@ DeviceLoader``, with its names and behaviour:
   with the steps; on CUDA the copies run on a side stream from pinned memory
   and the consumer's stream waits for each batch's copy;
 - the per-batch [B] vectors ``weight``, ``label`` and ``sample_index`` stay
-  host numpy, so epoch accounting never waits on the device.
+  host numpy, so epoch accounting never waits on the device;
+- ``device_text`` / ``device_images`` keep the split's text tensors and
+  labels, and its pixels as a flattened uint8 ``[N, H*W*3]`` table, on the
+  device, uploaded once per dataset and shared by every loader over it;
+  batches then gather those rows on the device by sample index;
+- when every input is in tables, :meth:`DeviceLoader.epoch_plan` describes
+  an epoch as the tables plus ``[num_batches, B]`` index and weight
+  matrices, which the engine runs as captured steps
+  (:mod:`mgnns_tpu_torch.engine.graphs`);
+- ``cache_device_batches`` keeps an unshuffled split's device batches from
+  its first epoch and replays them, up to ``cache_budget_bytes``: past the
+  budget the cache stops for good, so it stays a contiguous prefix and the
+  rest streams.
 
-The JAX loader's device-resident tables, epoch plans (for fused whole-epoch
-programs), eval-batch cache and mesh plans are not ported (``ROADMAP.md``).
+Tables are built on the consumer's thread, and the plan path runs no
+producer thread.  The JAX loader's mesh plans are not ported (``ROADMAP.md``
+queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -49,11 +62,17 @@ class DeviceLoader:
         num_threads: int = 8,
         with_images: bool = True,
         num_batches: int | None = None,
+        cache_device_batches: bool = False,
+        cache_budget_bytes: int | None = None,
+        device_images: bool = False,
+        device_text: bool = False,
         device="cuda",
     ):
         """``device`` raises when it is CUDA and no card is present.
         ``num_batches`` forces the epoch length: batches past the data's end
-        are all padding (``weight`` 0)."""
+        are all padding (``weight`` 0).  ``device_images`` raises unless the
+        dataset's pixels are deterministic per sample (eval transforms or
+        the synthetic backend)."""
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -66,6 +85,19 @@ class DeviceLoader:
         self.num_threads = num_threads
         self.with_images = with_images
         self.device = resolve_device(device)
+        if cache_device_batches and shuffle:
+            raise ValueError("cache_device_batches requires shuffle=False")
+        self.cache_device_batches = cache_device_batches
+        self.cache_budget_bytes = cache_budget_bytes
+        self._device_cache: list = []
+        self._cache_bytes = 0
+        self._cache_complete = False
+        self._cache_stopped = False
+        if device_images and not dataset.cacheable_images():
+            raise ValueError("device_images requires deterministic per-sample pixels "
+                             "(eval transforms or the synthetic backend)")
+        self.device_images = device_images and with_images
+        self.device_text = device_text
 
     def __len__(self) -> int:
         return self.num_batches
@@ -81,15 +113,20 @@ class DeviceLoader:
             "label": np.zeros((B,), np.int32),
             "weight": np.zeros((B,), np.float32),
             "sample_index": np.zeros((B,), np.int32),
-            "ids": np.zeros((B, L), np.int32),
-            "lens": lens,
-            "mask": (np.arange(L)[None, :] < lens[:, None]).astype(np.float32),
-            "eids": np.zeros((B, L, W), np.int32),
         }
-        if self.with_images:
+        if not self.device_text:
+            batch.update(ids=np.zeros((B, L), np.int32), lens=lens,
+                         mask=(np.arange(L)[None, :] < lens[:, None]).astype(np.float32),
+                         eids=np.zeros((B, L, W), np.int32))
+        if self.with_images and not self.device_images:
             s = self.ds.image_size
             batch["image"] = np.zeros((B, s, s, 3), np.uint8)
         return batch
+
+    def _padded(self, idx: np.ndarray) -> np.ndarray:
+        """A batch's sample indices, the last repeated up to the batch size."""
+        pad = self.batch_size - len(idx)
+        return np.concatenate([idx, np.repeat(idx[-1:], pad)]) if pad else idx
 
     def _assemble(self, idx: np.ndarray, pool: ThreadPoolExecutor | None, rng: random.Random,
                   n_valid: int | None = None) -> dict:
@@ -98,19 +135,17 @@ class DeviceLoader:
         if len(idx) == 0:
             return self._all_padding_batch()
         n = len(idx) if n_valid is None else n_valid
-        pad = B - len(idx)
-        full_idx = np.concatenate([idx, np.repeat(idx[-1:], pad)]) if pad else idx
+        full_idx = self._padded(idx)
         t = self.ds.text
         batch = {
             "label": self.ds.labels[full_idx],
             "weight": (np.arange(B) < n).astype(np.float32),
             "sample_index": full_idx.astype(np.int32),
-            "ids": t.ids[full_idx],
-            "lens": t.lens[full_idx],
-            "mask": t.mask[full_idx],
-            "eids": t.eids[full_idx],
         }
-        if self.with_images:
+        if not self.device_text:
+            batch.update(ids=t.ids[full_idx], lens=t.lens[full_idx], mask=t.mask[full_idx],
+                         eids=t.eids[full_idx])
+        if self.with_images and not self.device_images:
             seeds = [random.Random(rng.getrandbits(32)) for _ in full_idx]
             if pool is not None:
                 imgs = list(pool.map(self.ds.load_image, full_idx, seeds))
@@ -118,6 +153,63 @@ class DeviceLoader:
                 imgs = [self.ds.load_image(i, r) for i, r in zip(full_idx, seeds)]
             batch["image"] = np.stack(imgs)
         return batch
+
+    # ------------------------------------------------------- device tables
+
+    def _tables(self) -> dict:
+        """The dataset's device tables, shared by every loader over it."""
+        return self.ds.__dict__.setdefault("_device_tables", {})
+
+    def _ensure_text_tables(self) -> dict:
+        """``ids``, ``lens``, ``mask``, ``eids`` and ``label`` of the whole
+        split on the device, uploaded once."""
+        key = ("text", str(self.device))
+        cache = self._tables()
+        if key not in cache:
+            t = self.ds.text
+            src = {"ids": t.ids, "lens": t.lens, "mask": t.mask, "eids": t.eids,
+                   "label": self.ds.labels}
+            cache[key] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                          for k, v in src.items()}
+        return cache[key]
+
+    def _ensure_image_table(self, chunk_rows: int = 128) -> tuple[torch.Tensor, tuple]:
+        """(the split's pixels as a uint8 [N, H*W*3] device table, (H, W, 3)).
+        The pool decodes chunk k+1 while chunk k is copied in, so the host
+        holds about two chunks of pixels."""
+        key = ("image", str(self.device))
+        cache = self._tables()
+        if key not in cache:
+            N = len(self.ds)
+            probe = self.ds.load_image(0)
+            table = torch.empty((N, probe.size), dtype=torch.uint8, device=self.device)
+            chunks = [range(s, min(s + chunk_rows, N)) for s in range(0, N, chunk_rows)]
+            with ThreadPoolExecutor(self.num_threads) as pool:
+                ahead = [pool.submit(self.ds.load_image, i) for i in chunks[0]]
+                for k, rows in enumerate(chunks):
+                    now = ahead
+                    if k + 1 < len(chunks):
+                        ahead = [pool.submit(self.ds.load_image, i) for i in chunks[k + 1]]
+                    arr = np.stack([f.result() for f in now]).reshape(len(rows), -1)
+                    table[rows.start:rows.stop].copy_(torch.from_numpy(arr))
+            cache[key] = (table, tuple(probe.shape))
+        return cache[key]
+
+    def _gather_tables(self, batch: dict) -> dict:
+        """Add the table-resident tensors of ``batch``'s samples, gathered
+        on the device by ``sample_index``."""
+        if not (self.device_text or self.device_images):
+            return batch
+        idx = torch.from_numpy(np.asarray(batch["sample_index"], np.int64)).to(self.device)
+        out = dict(batch)
+        if self.device_text:
+            tabs = self._ensure_text_tables()
+            for k in ("ids", "lens", "mask", "eids"):
+                out[k] = tabs[k].index_select(0, idx)
+        if self.device_images:
+            table, row_shape = self._ensure_image_table()
+            out["image"] = table.index_select(0, idx).view((len(idx),) + row_shape)
+        return out
 
     def _epoch_chunks(self):
         """This epoch's batch index chunks [(indices, forced_n_valid)],
@@ -133,8 +225,34 @@ class DeviceLoader:
         return chunks
 
     def rewind_epoch(self) -> None:
-        """Un-consume one epoch, so the next iteration replays its order."""
+        """Un-consume one epoch, so the next iteration (or plan) replays its
+        order."""
         self.epoch = max(0, self.epoch - 1)
+
+    def epoch_plan(self) -> dict | None:
+        """One epoch as device tables plus ``idx`` and ``weight``, host
+        ``[num_batches, B]`` matrices of sample indices (int32, padding
+        repeats a batch's last sample) and 0/1 weights, with ``labels`` of
+        ``idx`` and the logical ``row_shapes`` of flattened tables.  None
+        unless every input the batches need is in tables (``device_text``,
+        and ``device_images`` when images are used).  Advances the epoch
+        counter as an iteration does."""
+        if not (self.device_text and (self.device_images or not self.with_images)):
+            return None
+        chunks = self._epoch_chunks()
+        B = self.batch_size
+        idx = np.zeros((len(chunks), B), np.int32)
+        wt = np.zeros((len(chunks), B), np.float32)
+        for i, (chunk, n_valid) in enumerate(chunks):
+            n = len(chunk) if n_valid is None else n_valid
+            idx[i] = self._padded(chunk)
+            wt[i] = np.arange(B) < n
+        tables = dict(self._ensure_text_tables())
+        row_shapes = {}
+        if self.device_images:
+            tables["image"], row_shapes["image"] = self._ensure_image_table()
+        return {"tables": tables, "idx": idx, "weight": wt, "labels": self.ds.labels[idx],
+                "row_shapes": row_shapes}
 
     def _place(self, item: dict, stream) -> tuple[dict, object]:
         """Copy a host batch's large arrays to the device (on ``stream`` from
@@ -152,9 +270,30 @@ class DeviceLoader:
             event.record(stream)
         return out, event
 
+    def _cache(self, batch: dict, nbytes: int) -> None:
+        """Keep a (table-free) device batch of the first epoch until the byte
+        budget is reached; the stop is a latch, so the cache stays a
+        contiguous prefix of the epoch."""
+        if not self.cache_device_batches or self._cache_complete or self._cache_stopped:
+            return
+        if (self.cache_budget_bytes is not None
+                and self._cache_bytes + nbytes > self.cache_budget_bytes):
+            self._cache_stopped = True
+            return
+        self._cache_bytes += nbytes
+        self._device_cache.append(batch)
+
     def __iter__(self) -> Iterator[dict]:
+        n_cached = len(self._device_cache)
+        for batch in self._device_cache:
+            # cached batches hold no table rows; gather them again
+            yield self._gather_tables(batch)
+        if n_cached and self._cache_complete:
+            return
         rng = random.Random(self.seed + self.epoch + 1)
-        chunks = self._epoch_chunks()
+        # caching requires shuffle=False, so the epoch's batches are the same
+        # every epoch: stream what follows the cached prefix
+        chunks = self._epoch_chunks()[n_cached:]
         q: queue.Queue = queue.Queue(maxsize=3)
         stop = threading.Event()
         stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -170,12 +309,15 @@ class DeviceLoader:
             return False
 
         def produce():
-            pool = ThreadPoolExecutor(self.num_threads) if self.with_images else None
+            pool = (ThreadPoolExecutor(self.num_threads)
+                    if self.with_images and not self.device_images else None)
             try:
                 for chunk, n_valid in chunks:
                     if stop.is_set():
                         return
-                    if not put_or_stop(self._place(self._assemble(chunk, pool, rng, n_valid), stream)):
+                    item = self._assemble(chunk, pool, rng, n_valid)
+                    nbytes = sum(np.asarray(v).nbytes for v in item.values())
+                    if not put_or_stop((*self._place(item, stream), nbytes)):
                         return
                 put_or_stop(None)
             except BaseException as e:  # surface producer errors to the consumer
@@ -190,17 +332,20 @@ class DeviceLoader:
             while True:
                 item = q.get()
                 if item is None:
+                    if self.cache_device_batches:
+                        self._cache_complete = len(self._device_cache) == self.num_batches
                     return
                 if isinstance(item, BaseException):
                     raise item
-                batch, event = item
+                batch, event, nbytes = item
                 if event is not None:
                     current = torch.cuda.current_stream(self.device)
                     current.wait_event(event)
                     for v in batch.values():
                         if isinstance(v, torch.Tensor):
                             v.record_stream(current)
-                yield batch
+                self._cache(batch, nbytes)
+                yield self._gather_tables(batch)
         finally:
             stop.set()
             thread.join()

@@ -22,7 +22,8 @@ def confusion_update(cm: torch.Tensor, preds: torch.Tensor, labels: torch.Tensor
     masks the padding rows of a final ragged batch."""
     if weights is None:
         weights = torch.ones_like(labels)
-    cm.index_put_((labels.long(), preds.long()), weights.to(cm.dtype), accumulate=True)
+    C = cm.shape[1]
+    cm.view(-1).index_add_(0, labels.long() * C + preds.long(), weights.to(cm.dtype))
     return cm
 
 

@@ -1,30 +1,36 @@
-"""The training and evaluation engine: steps, epoch loop, checkpoints, results.
+"""The training and evaluation engine: steps, epoch loops, checkpoints, results.
 
-Port of the loop path of the JAX package's ``mgnns_tpu/engine/train.py``:
+Port of the JAX package's ``mgnns_tpu/engine/train.py``:
 
 - ``train_step``: forward, ``CE + aux_loss_weight * aux``, backward, the
   optimizer (:mod:`mgnns_tpu_torch.engine.optim`) and the confusion-matrix
-  update.  The nan-guard reads ``isfinite(loss)`` on the host once per step:
-  a non-finite loss leaves the parameters, the optimizer state and the BN
-  running statistics as they were and adds nothing to the epoch's metrics;
+  update.  The nan-guard is a device flag ``ok = isfinite(loss)``: where it
+  is false the parameters, the optimizer state and the BN running
+  statistics keep their old values (``torch.where``, never a multiply, since
+  a NaN times 0 is NaN) and the step adds nothing to the confusion matrix;
+  the host reads nothing per step;
 - metrics accumulate on the device in a confusion matrix and are finalized
   per epoch; the per-step losses are read back once per epoch, stacked;
-- step LR decay lives in the optimizer's schedule;
+- step LR decay lives in the optimizer's schedule, on the device;
+- a loader whose split lives in device tables hands the engine an epoch
+  plan (``DeviceLoader.epoch_plan``), and the epoch runs as a captured step
+  replayed once per batch (:mod:`mgnns_tpu_torch.engine.graphs`; eagerly on
+  the CPU), the counterpart of the JAX engine's fused whole-epoch programs;
 - ``torch.save`` checkpoints every epoch with best-by-val-accuracy tracking
   and resume; the test split's results go to the reference's
-  experiment/pred text files.
+  experiment/pred text files; ``learning(profile_dir=)`` writes a
+  ``torch.profiler`` trace of the first epoch.
 
 The step's three phases are ``torch.profiler`` ranges (``engine.forward``,
 ``engine.backward``, ``engine.optimizer``).  The engine never inspects the
 model: it takes an ``apply_fn`` of signature
 ``(params, batch_stats, batch, *, train, generator) -> (logits,
 new_batch_stats[, aux])``, where ``aux`` is a scalar loss term.  Dropout in
-step ``s`` draws from a generator seeded by ``(seed, s)``.
+step ``s`` draws from the engine's :class:`~mgnns_tpu_torch.nn.core.
+SiteGenerators`, seeded by ``(seed, s)``.
 
-Not ported (``ROADMAP.md``): the fused whole-epoch programs and the segment
-ladder (XLA dispatch machinery; their CUDA counterpart would be graph
-capture of the step), the mesh and multihost branches and the prediction
-gather across hosts.
+Not ported (``ROADMAP.md`` queue 1 item 6): the mesh and multihost branches
+and the prediction gather across hosts.
 """
 
 from __future__ import annotations
@@ -39,10 +45,11 @@ import torch
 from torch.profiler import record_function
 
 from mgnns_tpu_torch.engine import metrics as M
-from mgnns_tpu_torch.engine.optim import Optimizer
-from mgnns_tpu_torch.nn.core import derive_seed
+from mgnns_tpu_torch.engine.graphs import StepGraphs
+from mgnns_tpu_torch.engine.optim import Optimizer, select_
+from mgnns_tpu_torch.nn.core import SiteGenerators, derive_seed
 from mgnns_tpu_torch.utils import (
-    resolve_device, tree_leaves, tree_map, tree_paths, tree_to, tree_unflatten,
+    resolve_device, torch_profile, tree_leaves, tree_paths, tree_to, tree_unflatten,
 )
 
 
@@ -57,10 +64,6 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Ten
 def _unpack(out):
     # apply_fn may return (logits, new_bs) or (logits, new_bs, aux_loss)
     return (out[0], out[1], out[2]) if len(out) == 3 else (out[0], out[1], 0.0)
-
-
-def _detach(tree):
-    return tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor) else t, tree)
 
 
 class Engine:
@@ -100,7 +103,8 @@ class Engine:
         self.nan_guard = nan_guard
         self.seed = seed
         self.params = tree_to(params, self.device)
-        self.batch_stats = tree_to(batch_stats, self.device)
+        # a copy: the engine updates the running statistics in place
+        self.batch_stats = tree_to(batch_stats, self.device, copy=True)
         self.opt = None if eval_only else Optimizer(
             self.params, lr=lr, lrp=lrp, weight_decay=weight_decay, grad_clip=grad_clip,
             steps_per_epoch=steps_per_epoch, epoch_step=epoch_step, lr_decay=lr_decay,
@@ -115,6 +119,15 @@ class Engine:
             self.checkpointer = Checkpointer(checkpoint_dir, max_to_keep)
         self.epoch = 0
         self.best_score = 0.0
+        self._gens = SiteGenerators(self.device)
+        self._graphs = StepGraphs(self)
+
+    def _state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a train step reads and updates in place."""
+        out = tree_leaves(self.params) + tree_leaves(self.batch_stats)
+        if self.opt is not None and self.opt_state is not None:
+            out += self.opt.tensors(self.opt_state)
+        return [t for t in out if isinstance(t, torch.Tensor)]
 
     # ---------------------------------------------------------------- steps
 
@@ -128,30 +141,43 @@ class Engine:
             raise RuntimeError("Engine was built with eval_only=True; "
                                "it has no optimizer state to train with")
         batch = self._to_device(batch)
-        gen = torch.Generator(device=self.device).manual_seed(derive_seed(self.seed, self.step))
+        self._gens.reseed(derive_seed(self.seed, self.step))
+        loss = self._train_core(batch, cm, self.opt.applies_now(self.opt_state))
+        self.opt.advance(self.opt_state)
+        self.step += 1
+        return loss
+
+    def _train_core(self, batch: dict, cm: torch.Tensor, apply_now: bool) -> torch.Tensor:
+        """The device work of a train step on a device batch, the same on the
+        loop path, the eager plan path and in a captured step: it reads no
+        host value that changes between steps."""
         leaves = tree_leaves(self.params)
         live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
         with record_function("engine.forward"):
             logits, new_bs, aux = _unpack(self.apply_fn(
-                tree_unflatten(self.params, live), self.batch_stats, batch, train=True, generator=gen))
+                tree_unflatten(self.params, live), self.batch_stats, batch, train=True,
+                generator=self._gens.root))
             loss = cross_entropy(logits, batch["label"], batch["weight"]) + self.aux_loss_weight * aux
         want = [i for i, p in enumerate(live) if p.requires_grad]
         grads: list = [None] * len(live)
         with record_function("engine.backward"):
             for i, g in zip(want, torch.autograd.grad(loss, [live[i] for i in want], allow_unused=True)):
                 grads[i] = g
-        self.step += 1
-        if self.nan_guard and not bool(torch.isfinite(loss)):
-            return loss.detach()
         with torch.no_grad(), record_function("engine.optimizer"):
-            self.opt.apply(leaves, grads, self.opt_state)
-            self.batch_stats = _detach(new_bs)
-            M.confusion_update(cm, logits.argmax(dim=-1), batch["label"], batch["weight"])
+            ok = torch.isfinite(loss) if self.nan_guard else None
+            self.opt.update(leaves, grads, self.opt_state, ok, apply_now)
+            stats = tree_leaves(self.batch_stats)
+            if stats:
+                select_(stats, [t.detach() for t in tree_leaves(new_bs)], ok)
+            weight = batch["weight"] if ok is None else torch.where(ok, batch["weight"], 0.0)
+            M.confusion_update(cm, logits.argmax(dim=-1), batch["label"], weight)
         return loss.detach()
 
     def eval_step(self, batch: dict, cm: torch.Tensor):
         """Returns (loss, preds) as device tensors; updates ``cm`` in place."""
-        batch = self._to_device(batch)
+        return self._eval_core(self._to_device(batch), cm)
+
+    def _eval_core(self, batch: dict, cm: torch.Tensor):
         with torch.no_grad():
             logits, _, _ = _unpack(self.apply_fn(self.params, self.batch_stats, batch,
                                                  train=False, generator=None))
@@ -164,13 +190,52 @@ class Engine:
 
     @staticmethod
     def _finish_losses(out: dict, loss_values) -> None:
+        out["step_losses"] = loss_values
         finite = [l for l in loss_values if np.isfinite(l)]
         out["loss"] = float(np.mean(finite)) if finite else float("nan")
         out["skipped_steps"] = len(loss_values) - len(finite)
         if out["skipped_steps"]:
             print(f"  [nan-guard] skipped {out['skipped_steps']} non-finite update(s)")
 
+    @staticmethod
+    def _epoch_plan(loader) -> dict | None:
+        plan_fn = getattr(loader, "epoch_plan", None)
+        return plan_fn() if plan_fn is not None else None
+
+    def _train_epoch_plan(self, plan: dict) -> dict:
+        run = self._graphs.train(plan)
+        out = M.metrics_from_confusion(run["cm"])
+        self._finish_losses(out, run["losses"].astype(np.float64).tolist())
+        n, dt = int(plan["weight"].sum()), run["seconds"]
+        out.update(samples_per_sec=n / dt if dt > 0 else 0.0, epoch_seconds=dt,
+                   capture_seconds=run["capture_seconds"], fused=True)
+        return out
+
+    def _eval_epoch_plan(self, plan: dict, collect_preds: bool) -> dict:
+        run = self._graphs.eval(plan)
+        out = M.metrics_from_confusion(run["cm"])
+        lv = run["losses"].astype(np.float64)
+        wv = plan["weight"].sum(axis=1).astype(np.float64)
+        out["loss"] = float((lv * wv).sum() / max(wv.sum(), 1.0)) if lv.size else 0.0
+        n, dt = int(plan["weight"].sum()), run["seconds"]
+        out.update(samples_per_sec=n / dt if dt > 0 else 0.0, epoch_seconds=dt,
+                   capture_seconds=run["capture_seconds"], confusion=run["cm"], fused=True)
+        if collect_preds:
+            w = plan["weight"].reshape(-1).astype(bool)
+            out["preds"] = run["preds"].reshape(-1)[w]
+            out["targets"] = plan["labels"].reshape(-1)[w]
+            out["sample_index"] = plan["idx"].reshape(-1)[w]
+        return out
+
     def train_epoch(self, loader: Iterable[dict], log_every: int = 0) -> dict:
+        """One epoch: over ``loader.epoch_plan()`` when the loader has one
+        (captured steps on the card), else batch by batch."""
+        if self.opt is None:
+            raise RuntimeError("Engine was built with eval_only=True; "
+                               "it has no optimizer state to train with")
+        plan = self._epoch_plan(loader)
+        if plan is not None:
+            return self._train_epoch_plan(plan)
         cm = M.confusion_init(self.num_classes, self.device)
         losses = []
         t0 = time.time()
@@ -200,6 +265,9 @@ class Engine:
         return out
 
     def eval_epoch(self, loader: Iterable[dict], collect_preds: bool = False) -> dict:
+        plan = self._epoch_plan(loader)
+        if plan is not None:
+            return self._eval_epoch_plan(plan, collect_preds)
         cm = M.confusion_init(self.num_classes, self.device)
         losses, wsums, all_preds, all_ids, all_tgts = [], [], [], [], []
         t0 = time.time()
@@ -234,6 +302,7 @@ class Engine:
         out["samples_per_sec"] = n / dt if dt > 0 else 0.0
         if t_steady is not None and n > n_steady and dt + t0 > t_steady:
             out["steady_samples_per_sec"] = (n - n_steady) / (dt + t0 - t_steady)
+        out["epoch_seconds"] = dt
         out["confusion"] = cm_host
         if collect_preds:
             out["preds"] = np.concatenate(all_preds) if all_preds else np.zeros(0, np.int64)
@@ -254,16 +323,20 @@ class Engine:
         log_every: int = 0,
         result_paths: dict | None = None,
         run_config: dict | None = None,
+        profile_dir: str | None = None,
         metrics_path: str | None = None,
     ) -> dict:
         """Train/val per epoch, checkpoint and best tracking, then test with
-        the best parameters (reference ``learning``)."""
+        the best parameters (reference ``learning``).  ``profile_dir``: a
+        ``torch.profiler`` trace of the first epoch's training goes there."""
         if resume and self.checkpointer is not None and self.checkpointer.latest_step() is not None:
             self.restore()
         history = []
+        first_epoch = self.epoch
         for epoch in range(self.epoch, max_epochs):
             self.epoch = epoch
-            tr = self.train_epoch(train_loader_fn(), log_every=log_every)
+            with torch_profile(profile_dir if epoch == first_epoch else None, self.device):
+                tr = self.train_epoch(train_loader_fn(), log_every=log_every)
             va = self.eval_epoch(val_loader_fn())
             va.pop("confusion", None)
             steady = tr.get("steady_samples_per_sec")
@@ -299,7 +372,7 @@ class Engine:
         """One JSON line per epoch."""
         keep = ("loss", "accuracy", "micro_f1", "macro_f1", "weighted_f1",
                 "samples_per_sec", "steady_samples_per_sec", "epoch_seconds",
-                "skipped_steps")
+                "capture_seconds", "skipped_steps", "fused")
         row = {
             "ts": time.time(),
             "epoch": epoch,
@@ -369,6 +442,8 @@ class Engine:
         self.best_score = float(restored["best_score"])
         if self.opt is not None:
             self.opt.label(self.params)  # the saved dict order is the state's leaf order
+            self.opt_state = self.opt.adopt(self.opt_state, self.device)
+        self._graphs.clear()  # they read the tensors just replaced
 
     def restore_from_dir(self, path: str, step: int | None = None) -> None:
         """Resume the full train state from a directory of the port's
@@ -384,5 +459,6 @@ class Engine:
         checkpoint, whose dead modules the optimizer then freezes) and start
         a fresh optimizer state, as the reference's resume does."""
         self.params = tree_to(params, self.device)
-        self.batch_stats = tree_to(batch_stats, self.device)
+        self.batch_stats = tree_to(batch_stats, self.device, copy=True)
         self.opt_state = self.opt.init(self.params) if self.opt is not None else None
+        self._graphs.clear()  # they read the tensors just replaced

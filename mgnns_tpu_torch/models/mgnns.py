@@ -56,10 +56,17 @@ def normalize_image_batch(x: torch.Tensor, dtype: torch.dtype = torch.float32) -
     (``mgnns_tpu/models/mgnns.py:61-71``); float inputs are taken as already
     normalized and pass through."""
     if x.dtype == torch.uint8:
-        scale = torch.tensor((1.0 / (255.0 * _IMAGE_STD)).astype(np.float32), device=x.device)
-        bias = torch.tensor((-_IMAGE_MEAN / _IMAGE_STD).astype(np.float32), device=x.device)
+        scale = _filled((1.0 / (255.0 * _IMAGE_STD)).astype(np.float32), x.device)
+        bias = _filled((-_IMAGE_MEAN / _IMAGE_STD).astype(np.float32), x.device)
         return x.to(dtype) * scale.to(dtype) + bias.to(dtype)
     return x
+
+
+def _filled(values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """float32 ``values`` on ``device``, made by fills there: a CUDA graph
+    capture refuses a copy from the host."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device)
+                        for v in values])
 
 
 def mgnns_init(
@@ -186,7 +193,9 @@ def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.T
     elif ((cfg.remat_trunks or cfg.remat_policy == "trunk") and not block_remat
           and torch.is_grad_enabled()):
         # one checkpoint around the whole trunk; 'block' wins when both are asked
-        feats, new_stats = checkpoint(trunk_fn, image, use_reentrant=False)
+        # no random numbers in a trunk: no RNG state to save (see resnet_apply)
+        feats, new_stats = checkpoint(trunk_fn, image, use_reentrant=False,
+                                      preserve_rng_state=False)
     else:
         feats, new_stats = trunk_fn(image)                          # [B, h, w, 2048]
     feats = feats.float()  # the heads run in float32 (the JAX package's feats32)

@@ -46,11 +46,65 @@ def derive_seed(seed: int, *parts) -> int:
     return int.from_bytes(hashlib.blake2b(key, digest_size=8).digest(), "little") >> 1
 
 
+class SiteGenerator(torch.Generator):
+    """A generator of a :class:`SiteGenerators` tree: ``path`` is the chain
+    of ``(count, name)`` call sites that leads to it from the root."""
+
+    def __new__(cls, tree: "SiteGenerators", path: tuple, device):
+        return super().__new__(cls, device=device)
+
+    def __init__(self, tree: "SiteGenerators", path: tuple, device):
+        self.tree = tree
+        self.path = path
+
+
+class SiteGenerators:
+    """Dropout generators made once per call site and re-seeded per step.
+
+    A step's model code asks :class:`RngStream` for one generator per call
+    site; over this tree's ``root`` it gets the same :class:`SiteGenerator`
+    object at every step, one per path of ``(count, name)`` pairs, seeded as
+    a fresh generator would be: ``derive_seed(<parent's seed>, count,
+    name)``.  :meth:`reseed` sets every known generator for the next step.
+    A captured CUDA graph registers :meth:`generators` and reads their seeds
+    and offsets at each replay, so a replay draws the masks that the same
+    step draws eagerly."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.root = SiteGenerator(self, (), self.device)
+        self._nodes = {(): self.root}  # path -> generator, parents before children
+
+    def child(self, parent: SiteGenerator, count: int, name: str) -> SiteGenerator:
+        path = parent.path + ((count, name),)
+        gen = self._nodes.get(path)
+        if gen is None:
+            gen = SiteGenerator(self, path, self.device)
+            gen.manual_seed(derive_seed(parent.initial_seed(), count, name))
+            self._nodes[path] = gen
+        return gen
+
+    def reseed(self, seed: int) -> None:
+        """Seed the root with ``seed`` and every site below it as
+        :class:`RngStream` derives it; offsets restart at 0."""
+        seeds = {(): seed}
+        self.root.manual_seed(seed)
+        for path, gen in self._nodes.items():
+            if path:
+                seeds[path] = derive_seed(seeds[path[:-1]], *path[-1])
+                gen.manual_seed(seeds[path])
+
+    def generators(self) -> list[SiteGenerator]:
+        return list(self._nodes.values())
+
+
 class RngStream:
     """Hands out one dropout generator per call site, derived from a root
     generator's seed, a counter and the site's name (the counterpart of the
     JAX package's ``RngStream``).  A site's mask does not depend on how much
-    randomness other sites drew.  ``next`` returns None without a root.
+    randomness other sites drew.  ``next`` returns None without a root.  A
+    root from :class:`SiteGenerators` hands out that tree's generators; any
+    other root a new generator per call.
 
     Usage inside an apply function::
 
@@ -66,6 +120,8 @@ class RngStream:
         if self._root is None:
             return None
         self._count += 1
+        if isinstance(self._root, SiteGenerator):
+            return self._root.tree.child(self._root, self._count, name)
         seed = derive_seed(self._root.initial_seed(), self._count, name)
         return torch.Generator(device=self._root.device).manual_seed(seed)
 

@@ -207,8 +207,11 @@ def resnet_apply(params: dict, stats: dict, x: torch.Tensor, *, train: bool = Fa
         for b, (pb, sb) in enumerate(zip(params[f"layer{li}"], stats[f"layer{li}"])):
             stride = 2 if (li > 1 and b == 0) else 1
             if block_remat and torch.is_grad_enabled():
+                # a block draws no random numbers, so its RNG state is not
+                # saved: torch would read the card's generator, which a CUDA
+                # graph capture forbids
                 out, nsb = checkpoint(_bottleneck_apply, pb, sb, out, stride, train, dtype,
-                                      use_reentrant=False)
+                                      use_reentrant=False, preserve_rng_state=False)
             else:
                 out, nsb = _bottleneck_apply(pb, sb, out, stride, train, dtype)
             ns[f"layer{li}"].append(nsb)

@@ -1,6 +1,8 @@
-"""Device and parameter-tree helpers."""
+"""Device, parameter-tree and profiling helpers."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -25,9 +27,10 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def tree_to(tree, device: torch.device):
-    """Move every tensor leaf of a parameter tree to ``device``."""
-    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)
+def tree_to(tree, device: torch.device, copy: bool = False):
+    """Move every tensor leaf of a parameter tree to ``device``; ``copy``
+    copies leaves that are there already too."""
+    return tree_map(lambda t: t.to(device, copy=copy) if isinstance(t, torch.Tensor) else t, tree)
 
 
 def tree_leaves(tree) -> list:
@@ -51,3 +54,22 @@ def tree_paths(tree, prefix: str = "") -> list[str]:
     if isinstance(tree, (list, tuple)):
         return [p for i, v in enumerate(tree) for p in tree_paths(v, f"{prefix}/{i}")]
     return [prefix]
+
+
+@contextlib.contextmanager
+def torch_profile(log_dir: str | None, device: torch.device):
+    """A ``torch.profiler`` trace of the block into ``log_dir`` (a Chrome
+    trace per run, by ``tensorboard_trace_handler``, which needs no
+    tensorboard), with the card's kernels when ``device`` is CUDA; the
+    counterpart of the JAX package's ``jax_profile``.  No trace without a
+    ``log_dir``."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

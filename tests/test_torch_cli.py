@@ -49,6 +49,40 @@ def test_mvsa_text_cli_end_to_end(tmp_path):
     assert "negative" in report and "neutral" in report and "positive" in report
 
 
+def test_cli_device_tables_and_profile_dir_give_the_streaming_run(tmp_path, capsys):
+    """``--device_text --device_images --cache_eval_batches --profile_dir``
+    on the CPU: the greedy budget line, a trace of the first epoch in
+    ``--profile_dir``, and every metric and prediction of the same run
+    without the flags (the plan path runs the loop path's step on the same
+    batches with the same dropout masks).  One torch thread: with more, the
+    CPU's embedding backward adds across threads in a varying order, and
+    even two runs without the flags can differ in the last bit of a loss."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _check_device_tables_run(tmp_path, capsys)
+    finally:
+        torch.set_num_threads(before)
+
+
+def _check_device_tables_run(tmp_path, capsys):
+    _make_mvsa_tree(tmp_path)
+    plain = pmain.main(["--platform", "cpu"] + _text_args(tmp_path, tmp_path / "plain", 2))
+    capsys.readouterr()
+    flags = ["--device_text", "--device_images", "--cache_eval_batches",
+             "--profile_dir", str(tmp_path / "trace")]
+    res = pmain.main(["--platform", "cpu"] + _text_args(tmp_path, tmp_path / "tables", 2) + flags)
+    assert "device_images: 3/3 split tables within 7.0 GB budget" in capsys.readouterr().out
+    assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path / "trace"))
+    for got, want in zip(res["history"], plain["history"]):
+        assert got["train"]["fused"] and got["val"]["fused"]
+        for split in ("train", "val"):
+            for k in ("loss", "accuracy", "micro_f1", "macro_f1", "weighted_f1"):
+                assert got[split][k] == want[split][k], (split, k)
+    for k in ("accuracy", "loss", "preds", "targets", "sample_index"):
+        np.testing.assert_array_equal(res["test"][k], plain["test"][k], err_msg=k)
+
+
 def _files(root) -> dict:
     return {os.path.relpath(os.path.join(d, f), root): os.path.join(d, f)
             for d, _, fs in os.walk(root) for f in fs}
@@ -151,9 +185,8 @@ def _sample_argv(action) -> list[str]:
     return [opt, value]
 
 
-REJECTED = {"device_images", "device_text", "device_images_budget_gb", "cache_eval_batches",
-            "fused_segments", "use_pallas", "libtpu_init_args", "perf_preset", "mesh_data",
-            "mesh_model", "multihost", "profile_dir"}
+REJECTED = {"fused_segments", "use_pallas", "libtpu_init_args", "perf_preset", "mesh_data",
+            "mesh_model", "multihost"}
 
 
 def test_every_jax_flag_parses_and_is_honoured_ignored_or_rejected_with_its_counterpart():

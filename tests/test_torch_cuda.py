@@ -372,3 +372,158 @@ def test_one_train_step_launches_k1_and_k2_once(cuda_device):
     engine.train_step(batches[0], confusion_init(7, cuda_device))
     torch.cuda.synchronize()
     assert (edge_max.launches, edge_max.bwd_launches) == (1, 1)
+
+
+# ------------------------------------------------- captured steps over a plan
+
+
+class _PlanLoader:
+    """A loader whose every epoch is the same plan over device tables."""
+
+    def __init__(self, plan):
+        self.plan = plan
+
+    def epoch_plan(self):
+        return dict(self.plan)
+
+
+def _fusion_plan_engine(device, dropout, remat_policy="none", nb=3, B=2, checkpoint_dir=None):
+    """The 64 px fusion model of ``_small_fusion`` (Adam, head diversity in
+    the loss) and a plan of ``nb`` batches of ``B`` over 5 records' device
+    tables; the host batches of the same plan for the loop path."""
+    import dataclasses
+
+    from mgnns_tpu_torch.engine.train import Engine
+    from mgnns_tpu_torch.models.mgnns import mgnns_apply
+
+    cfg, params, stats, consts, _ = _small_fusion(device)
+    cfg = dataclasses.replace(cfg, dropout=dropout, text_dropout=dropout, is_regu=True,
+                              remat_policy=remat_policy)
+    r = np.random.default_rng(1)
+    N, L = 5, 6
+    lens = r.integers(1, L + 1, N).astype(np.int32)
+    host = {"ids": r.integers(1, 50, (N, L)).astype(np.int32), "lens": lens,
+            "mask": (np.arange(L)[None] < lens[:, None]).astype(np.float32),
+            "eids": r.integers(0, 30, (N, L, 9)).astype(np.int32),
+            "label": r.integers(0, 7, N).astype(np.int32),
+            "image": r.integers(0, 256, (N, 64 * 64 * 3)).astype(np.uint8)}
+    idx = r.integers(0, N, (nb, B)).astype(np.int32)
+    weight = np.ones((nb, B), np.float32)
+    weight[-1, -1] = 0.0
+    plan = {"tables": {k: torch.from_numpy(v).to(device) for k, v in host.items()},
+            "idx": idx, "weight": weight, "labels": host["label"][idx],
+            "row_shapes": {"image": (64, 64, 3)}}
+    batches = [{**{k: v[idx[i]] for k, v in host.items()}, "weight": weight[i]}
+               for i in range(nb)]
+    for b in batches:
+        b["image"] = b["image"].reshape(B, 64, 64, 3)
+
+    def apply_fn(p, bs, batch, *, train, generator):
+        logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=cfg, train=train,
+                                          generator=generator)
+        return logits, new_bs, aux.get("head_diversity", 0.0)
+
+    engine = Engine(apply_fn, params, stats, num_classes=7, lr=1e-3, aux_loss_weight=0.3,
+                    steps_per_epoch=nb, checkpoint_dir=checkpoint_dir, device=device)
+    return engine, _PlanLoader(plan), batches
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: its default float32 weight-gradient
+    algorithm adds with atomics, so two eager runs of the same steps differ
+    too.  A graph keeps the algorithms chosen at its capture."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+def _scale_errors(got, want) -> float:
+    from mgnns_tpu_torch.utils import tree_leaves
+
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout,remat_policy", [(0.0, "none"), (0.5, "none"), (0.5, "block")])
+def test_captured_steps_equal_eager_steps(cuda_device, deterministic_cudnn, dropout,
+                                          remat_policy):
+    """Three steps of the fusion model as CUDA-graph replays over a plan
+    against the same three steps eagerly (the loop path) from the same
+    weights, with cuDNN's deterministic algorithms: per-step losses,
+    parameters and BN statistics within 1e-6 of each leaf's scale (the
+    figure is printed; 0.0 when the replay runs the eager step's kernels in
+    the eager step's order).  At dropout 0.5 the replays draw the loop
+    path's masks from the re-seeded site generators; with per-block remat
+    the recompute is captured too."""
+    from mgnns_tpu_torch.engine.metrics import confusion_init
+
+    graph_eng, loader, batches = _fusion_plan_engine(cuda_device, dropout, remat_policy)
+    loop_eng, _, _ = _fusion_plan_engine(cuda_device, dropout, remat_policy)
+    got = graph_eng._graphs.train(loader.epoch_plan())
+    cm = confusion_init(7, cuda_device)
+    want = np.array([float(loop_eng.train_step(b, cm)) for b in batches], np.float32)
+    assert got["capture_seconds"] > 0 and np.isfinite(got["losses"]).all()
+    loss_err = float(np.abs(got["losses"] - want).max() / np.abs(want).max())
+    param_err = _scale_errors(graph_eng.params, loop_eng.params)
+    stat_err = _scale_errors(graph_eng.batch_stats, loop_eng.batch_stats)
+    print(f"captured vs eager, dropout {dropout}, remat {remat_policy}: losses {got['losses']} "
+          f"vs {want}; max error of scale: losses {loss_err}, parameters {param_err}, "
+          f"BN statistics {stat_err}")
+    assert loss_err <= 1e-6 and param_err <= 1e-6 and stat_err <= 1e-6
+    np.testing.assert_array_equal(got["cm"], cm.cpu().numpy())
+    assert int(graph_eng.opt_state["count"]) == graph_eng.step == 3
+
+
+@pytest.mark.cuda
+def test_replays_launch_k1_and_k2_once_each(cuda_device):
+    """Counted from the profiler's device events (a replay runs none of the
+    wrappers' Python, so their counters stay put): every train replay runs
+    K1 once and K2 once, every eval replay K1 once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, loader, _ = _fusion_plan_engine(cuda_device, 0.5)
+    engine.train_epoch(loader)  # captures
+    engine.eval_epoch(loader)
+    edge_max.launches = edge_max.bwd_launches = 0
+    # a warm-up cycle first, as events at the very start of a trace can be
+    # lost; the active cycle's events are read when it ends
+    counts = {}
+
+    def ready(prof):
+        counts.update({name: sum(e.count for e in prof.key_averages() if name in e.key)
+                       for name in ("edge_max_fwd_kernel", "edge_max_bwd_kernel")})
+
+    with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=ready,
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            tr = engine.train_epoch(loader)
+            ev = engine.eval_epoch(loader)
+            torch.cuda.synchronize()
+            prof.step()
+    assert tr["fused"] and ev["fused"] and tr["capture_seconds"] == ev["capture_seconds"] == 0.0
+    assert counts == {"edge_max_fwd_kernel": 3 + 3, "edge_max_bwd_kernel": 3}, counts
+    assert (edge_max.launches, edge_max.bwd_launches) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_restore_after_capture_replays_the_restored_trajectory(cuda_device, deterministic_cudnn,
+                                                               tmp_path):
+    """Train two epochs through captured steps, restore the checkpoint of
+    the first and train the second again: the graphs are dropped with the
+    tensors they read, the new ones are captured against the restored
+    state, and the second epoch's losses and parameters come out again
+    (deterministic cuDNN, as above)."""
+    engine, loader, _ = _fusion_plan_engine(cuda_device, 0.5, checkpoint_dir=str(tmp_path))
+    engine.train_epoch(loader)
+    engine.save()
+    second = engine._graphs.train(loader.epoch_plan())["losses"]
+    params = [t.clone() for t in engine._state_tensors()]
+    engine.restore()
+    assert engine.step == 3
+    again = engine._graphs.train(loader.epoch_plan())
+    assert again["capture_seconds"] > 0
+    np.testing.assert_array_equal(again["losses"], second)
+    assert _scale_errors(engine._state_tensors(), params) <= 1e-6
