@@ -80,13 +80,39 @@ Phases (any failure exits non-zero, and no result line is printed):
    weights trains on the loop path beside it: one epoch of 4 steps each,
    whose per-step losses and parameters must agree within 1e-6 of scale,
    and 32 records of eval through a captured eval step, whose predictions
-   must be equal; then both paths in turns (loop, graph, graph, loop) for
-   the per-step wall time, and one profiled epoch of the graph path for the
-   device busy time, idle share, launches, and K1 and K2 once per replay; capture
-   seconds and peak memory; last ``cli.main --device_text --device_images
-   --cache_eval_batches --profile_dir`` on phase 5's tree for 2 epochs at
-   bf16, which must print its budget line, run every epoch through captured
-   steps and leave a trace with K1 and K2 events.
+   must be equal; the same epoch again under the library defaults must be
+   bit-equal (the trunk convs' pin sets cuDNN's deterministic algorithms,
+   fault 3.4; the ``deterministic_cudnn()`` epoch stays as a second
+   witness); then the paths in turns (loop, graph, mesh, mesh, graph, loop)
+   for the per-step wall time, one profiled epoch of each captured path for
+   the device busy time, idle share, launches, NCCL kernels, and K1 and K2
+   once per replay; capture seconds and peak memory; at float32 the
+   captured and the loop step in turns under the pin and under the pin as
+   it stood before fault 3.4's repair (what the repair costs); last
+   ``cli.main --device_text --device_images --cache_eval_batches
+   --profile_dir`` on phase 5's tree for 2 epochs at bf16, which must print
+   its budget line, run every epoch through captured steps and leave a
+   trace with K1 and K2 events;
+9. data-parallel training (``mgnns_tpu_torch.parallel``):
+   9a. two ranks sharing the card over gloo (NCCL refuses two ranks on one
+   device), started as ``torchrun`` would start them (this script with
+   ``--phase9-rank``): the full-width fusion model at float32, 64 train
+   and 32 val records in device tables split by each rank's input plan,
+   global batch 16, dropout 0.5, Adam, 4 train steps and an eval epoch;
+   per step the wall time, the bytes and number of all-reduces and each
+   rank's peak memory; K1 and K2 once per rank per forward and backward;
+   held to the 1-rank run of the same global batches on this card: losses
+   within 1e-5 relative, parameters and BN statistics within 1e-4 of each
+   leaf's scale (floored at 1e-3 of the largest leaf's), eval predictions
+   equal; with two cards or more, the same 2 ranks over NCCL;
+   9b. (inside phase 8) a process group of one rank over NCCL: the mesh
+   engine's captured train and eval steps, float32 and bf16, held to phase
+   8's captured step from the same state within 1e-6 of scale;
+   9c. ``python -m torch.distributed.run --nproc_per_node 1 -m
+   mgnns_tpu_torch.cli.main --multihost --mesh_data 1`` with phase 8's CLI
+   flags, whose prediction file must equal phase 8's non-distributed run's
+   (with two cards or more, 2 ranks over NCCL too, whose file must hold
+   every record).
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -96,6 +122,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -103,11 +130,13 @@ import os
 import pickle
 import random
 import re
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -125,7 +154,7 @@ from mgnns_tpu_torch.models.mgnns import mgnns_apply, mgnns_init
 from mgnns_tpu_torch.models.text_only import text_model_apply, text_model_init
 from mgnns_tpu_torch.nn import resnet
 from mgnns_tpu_torch.serving import Predictor
-from mgnns_tpu_torch.utils import tree_leaves, tree_map, tree_to, tree_unflatten
+from mgnns_tpu_torch.utils import tree_leaves, tree_map, tree_paths, tree_to, tree_unflatten
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -143,6 +172,12 @@ LABELS = {name: i for i, name in enumerate(
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def card_line() -> str:
@@ -1462,6 +1497,8 @@ def phase7(root: str, k1: dict) -> None:
 # ------------------------------------------------------------------ phase 8
 
 P8_TRAIN, P8_VAL = 64, 32
+P8_CLI_FLAGS = ["--limit_samples", "32", "--epochs", "2", "-b", "16", "--compute_dtype",
+                "bfloat16", "--device_text", "--device_images", "--cache_eval_batches"]
 
 
 def _tree_error(got, want) -> float:
@@ -1502,12 +1539,37 @@ def _profiled_epoch(run) -> dict:
     count = lambda name: sum(e.count for e in kernels if name in e.key)  # noqa: E731
     return {"out": out, "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
             "launches": sum(e.count for e in kernels), "k1": count("edge_max_fwd_kernel"),
-            "k2": count("edge_max_bwd_kernel")}
+            "k2": count("edge_max_bwd_kernel"), "nccl": _nccl_kernels(kernels)}
 
 
-def _phase8_dtype(setup: dict, workdir: str, dtype: str) -> dict:
-    """Graph path and loop path of one precision from the same weights, in
-    turns: losses and parameters compared, then timed and profiled."""
+@contextlib.contextmanager
+def pin_before_fault_3_4():
+    """The trunk convs' pin as it stood before fault 3.4 was repaired:
+    IEEE float32 only, cuDNN's algorithms left as the caller has them (the
+    default ones here), for timing the repair's cost."""
+    conv = torch.backends.cudnn.conv
+
+    @contextlib.contextmanager
+    def old_pin():
+        saved = conv.fp32_precision
+        conv.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            conv.fp32_precision = saved
+
+    with mock.patch.object(resnet, "ieee_float32_convs", old_pin):
+        yield
+
+
+def _nccl_kernels(prof_kernels) -> int:
+    return sum(e.count for e in prof_kernels if "nccl" in e.key.lower())
+
+
+def _phase8_dtype(setup: dict, workdir: str, dtype: str, mesh) -> dict:
+    """Graph path, loop path and (phase 9b) the graph path of a 1-rank NCCL
+    mesh engine from the same weights, in turns: losses and parameters
+    compared, then timed and profiled."""
     cfg = dataclasses.replace(setup["cfg"], compute_dtype=dtype)
     vocab, graph, texts = setup["vocab"], setup["graph"], setup["texts"]
     r = np.random.default_rng(8)
@@ -1524,133 +1586,196 @@ def _phase8_dtype(setup: dict, workdir: str, dtype: str) -> dict:
     val_ds = TumblrDataset(data_cfg, TextGraphConfig(), "val", vocab, graph,
                            image_size=cfg.image_size, records=_records(texts, P8_VAL, 600, r))
 
-    def apply_fn(p, bs, batch, *, train, generator):
+    def apply_fn(p, bs, batch, *, train, generator, axis=None):
         logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=cfg, train=train,
-                                          generator=generator)
+                                          generator=generator, axis=axis)
         return logits, new_bs, aux.get("head_diversity", 0.0)
 
     steps = P8_TRAIN // TRAIN_BATCH
     kw = dict(num_classes=len(LABELS), steps_per_epoch=steps, aux_loss_weight=0.1, device="cuda")
     engines = {"graph": Engine(apply_fn, params, stats, **kw),
-               "loop": Engine(apply_fn, tree_map(torch.clone, params), stats, **kw)}
+               "loop": Engine(apply_fn, tree_map(torch.clone, params), stats, **kw),
+               "mesh": Engine(apply_fn, tree_map(torch.clone, params), stats, mesh=mesh, **kw)}
+
+    def table_loaders():
+        return (DeviceLoader(train_ds, TRAIN_BATCH, shuffle=True, seed=0, device_text=True,
+                             device_images=True, device="cuda"),
+                DeviceLoader(val_ds, TRAIN_BATCH, device_text=True, device_images=True,
+                             device="cuda"))
+
     loaders = {
-        "graph": (DeviceLoader(train_ds, TRAIN_BATCH, shuffle=True, seed=0, device_text=True,
-                               device_images=True, device="cuda"),
-                  DeviceLoader(val_ds, TRAIN_BATCH, device_text=True, device_images=True,
-                               device="cuda")),
+        "graph": table_loaders(), "mesh": table_loaders(),
         "loop": (DeviceLoader(train_ds, TRAIN_BATCH, shuffle=True, seed=0, device="cuda"),
                  DeviceLoader(val_ds, TRAIN_BATCH, device="cuda"))}
     res: dict = {"dtype": dtype}
 
-    def compare(g: dict, lp: dict, key: str) -> None:
+    def compare(g: dict, lp: dict, key: str, a: str = "graph", b: str = "loop") -> None:
         res[key] = {
-            "losses": {"graph": g["step_losses"], "loop": lp["step_losses"]},
-            "loss_err": max(abs(a - b) / abs(b)
-                            for a, b in zip(g["step_losses"], lp["step_losses"])),
-            "param_err": _tree_error(engines["graph"].params, engines["loop"].params),
-            "stats_err": _tree_error(engines["graph"].batch_stats, engines["loop"].batch_stats),
+            "losses": {a: g["step_losses"], b: lp["step_losses"]},
+            "loss_err": max(abs(x - y) / abs(y)
+                            for x, y in zip(g["step_losses"], lp["step_losses"])),
+            "param_err": _tree_error(engines[a].params, engines[b].params),
+            "stats_err": _tree_error(engines[a].batch_stats, engines[b].batch_stats),
             "equal": g["step_losses"] == lp["step_losses"] and all(
-                torch.equal(a, b) for a, b in zip(engines["graph"]._state_tensors(),
-                                                  engines["loop"]._state_tensors()))}
+                torch.equal(x, y) for x, y in zip(engines[a]._state_tensors(),
+                                                  engines[b]._state_tensors()))}
         if not all(math.isfinite(v) for v in g["step_losses"] + lp["step_losses"]) \
                 or g["skipped_steps"] or lp["skipped_steps"]:
             raise SystemExit(f"phase 8 {dtype}: a non-finite loss or a skipped step")
 
     # (a) one epoch of each path from the same weights, train and eval, with
-    # cuDNN's deterministic algorithms, so that the two may be compared bit
-    # for bit
+    # cuDNN's deterministic algorithms set around the whole step as well (the
+    # trunk convs' pin sets them since fault 3.4: a second witness)
+    first: dict = {}
     with deterministic_cudnn():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        edge_max.launches = edge_max.bwd_launches = 0
-        first = {"graph": engines["graph"].train_epoch(loaders["graph"][0])}
-        torch.cuda.synchronize()
-        res["peak_bytes_graph"] = torch.cuda.max_memory_allocated()
-        res["wrapper_calls_capture"] = (edge_max.launches, edge_max.bwd_launches)
-        torch.cuda.reset_peak_memory_stats()
-        first["loop"] = engines["loop"].train_epoch(loaders["loop"][0])
-        torch.cuda.synchronize()
-        res["peak_bytes_loop"] = torch.cuda.max_memory_allocated()
-        if not (first["graph"].get("fused") and "fused" not in first["loop"]):
+        for path in ("graph", "loop", "mesh"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            edge_max.launches = edge_max.bwd_launches = 0
+            first[path] = engines[path].train_epoch(loaders[path][0])
+            torch.cuda.synchronize()
+            res[f"peak_bytes_{path}"] = torch.cuda.max_memory_allocated()
+            if path != "loop":
+                res[f"wrapper_calls_capture_{path}"] = (edge_max.launches, edge_max.bwd_launches)
+        if not (first["graph"].get("fused") and first["mesh"].get("fused")
+                and "fused" not in first["loop"]):
             raise SystemExit(f"phase 8 {dtype}: the table loader did not take the plan path")
         compare(first["graph"], first["loop"], "deterministic")
-        ev = {k: engines[k].eval_epoch(loaders[k][1], collect_preds=True)
-              for k in ("graph", "loop")}
+        compare(first["mesh"], first["graph"], "mesh_vs_graph", "mesh", "graph")
+        ev = {k: engines[k].eval_epoch(loaders[k][1], collect_preds=True) for k in engines}
     res["capture_s"] = first["graph"]["capture_seconds"]
+    res["mesh_capture_s"] = first["mesh"]["capture_seconds"]
     res["eval_capture_s"] = ev["graph"]["capture_seconds"]
     res["eval_preds_equal"] = bool(np.array_equal(ev["graph"]["preds"], ev["loop"]["preds"]))
+    res["mesh_eval_preds_equal"] = bool(np.array_equal(ev["mesh"]["preds"], ev["graph"]["preds"]))
     res["eval_loss"] = {k: ev[k]["loss"] for k in ev}
-    # the graphs keep the algorithms of their capture: capture again with
-    # cuDNN's default ones
-    engines["graph"]._graphs.clear()
 
-    # (b) per-step wall time in turns, under the defaults; the first two
-    # turns start from the same state, so they compare the paths once more
-    walls: dict = {"graph": [], "loop": []}
+    # (b) per-step wall time in turns under the library defaults (the trunk
+    # convs' pin keeps cuDNN deterministic); the graphs are captured again
+    # outside the context above, and the first turns start from the same
+    # state, so they compare the paths once more
+    engines["graph"]._graphs.clear()
+    engines["mesh"]._graphs.clear()
+    walls: dict = {"graph": [], "loop": [], "mesh": []}
     turns = {}
-    for path in ("loop", "graph", "graph", "loop"):
+    for path in ("loop", "graph", "mesh", "mesh", "graph", "loop"):
         out = engines[path].train_epoch(loaders[path][0])
         walls[path].append(out["epoch_seconds"] / steps * 1e3)
         if path not in turns:
             turns[path] = out
-            if len(turns) == 2:
+            if path == "graph":
                 compare(turns["graph"], turns["loop"], "default")
                 res["recapture_s"] = turns["graph"]["capture_seconds"]
-    eval_walls: dict = {"graph": [], "loop": []}
-    for path in ("loop", "graph", "graph", "loop"):
+    eval_walls: dict = {"graph": [], "loop": [], "mesh": []}
+    for path in ("loop", "graph", "mesh", "mesh", "graph", "loop"):
         out = engines[path].eval_epoch(loaders[path][1])
         eval_walls[path].append(out["epoch_seconds"] / len(loaders[path][1]) * 1e3)
-    # the graph path profiled (phase 4 profiles a loop step)
     res["train_loop"] = {"wall_ms_per_step": statistics.median(walls["loop"]),
                          "walls": walls["loop"]}
     res["eval_loop"] = {"wall_ms_per_forward": statistics.median(eval_walls["loop"]),
                         "walls": eval_walls["loop"]}
-    ld_train, ld_val = loaders["graph"]
-    prof = _profiled_epoch(lambda: engines["graph"].train_epoch(ld_train))
-    wall = statistics.median(walls["graph"])
-    res["train_graph"] = {
-        "wall_ms_per_step": wall, "walls": walls["graph"],
-        "busy_ms_per_step": prof["busy_ms"] / steps,
-        "idle_share": 1 - prof["busy_ms"] / steps / wall,
-        "launches_per_step": prof["launches"] / steps,
-        "k1_per_step": prof["k1"] / steps, "k2_per_step": prof["k2"] / steps}
-    nb = len(ld_val)
-    prof = _profiled_epoch(lambda: engines["graph"].eval_epoch(ld_val))
-    wall = statistics.median(eval_walls["graph"])
-    res["eval_graph"] = {
-        "wall_ms_per_forward": wall, "walls": eval_walls["graph"],
-        "busy_ms_per_forward": prof["busy_ms"] / nb,
-        "idle_share": 1 - prof["busy_ms"] / nb / wall,
-        "launches_per_forward": prof["launches"] / nb, "k1_per_forward": prof["k1"] / nb}
+    for path in ("graph", "mesh"):
+        ld_train, ld_val = loaders[path]
+        prof = _profiled_epoch(lambda e=engines[path], ld=ld_train: e.train_epoch(ld))
+        wall = statistics.median(walls[path])
+        res[f"train_{path}"] = {
+            "wall_ms_per_step": wall, "walls": walls[path],
+            "busy_ms_per_step": prof["busy_ms"] / steps,
+            "idle_share": 1 - prof["busy_ms"] / steps / wall,
+            "launches_per_step": prof["launches"] / steps,
+            "nccl_per_step": prof["nccl"] / steps,
+            "k1_per_step": prof["k1"] / steps, "k2_per_step": prof["k2"] / steps}
+        nb = len(ld_val)
+        prof = _profiled_epoch(lambda e=engines[path], ld=ld_val: e.eval_epoch(ld))
+        wall = statistics.median(eval_walls[path])
+        res[f"eval_{path}"] = {
+            "wall_ms_per_forward": wall, "walls": eval_walls[path],
+            "busy_ms_per_forward": prof["busy_ms"] / nb,
+            "idle_share": 1 - prof["busy_ms"] / nb / wall,
+            "launches_per_forward": prof["launches"] / nb,
+            "nccl_per_forward": prof["nccl"] / nb, "k1_per_forward": prof["k1"] / nb}
+
+    # (c) float32: what the repair of fault 3.4 costs, in turns: the captured
+    # step and the loop step under the pin with cuDNN's deterministic
+    # algorithms (now) and under the pin before the repair
+    if dtype == "float32":
+        pin_walls: dict = {}
+        for path, pin in (("loop", "new"), ("graph", "new"), ("graph", "old"), ("loop", "old"),
+                          ("loop", "old"), ("graph", "old"), ("graph", "new"), ("loop", "new")):
+            ctx = pin_before_fault_3_4() if pin == "old" else contextlib.nullcontext()
+            engines["graph"]._graphs.clear()  # a graph keeps its capture's algorithms
+            with ctx:
+                out = engines[path].train_epoch(loaders[path][0])
+            pin_walls.setdefault(f"{path}_{pin}", []).append(out["epoch_seconds"] / steps * 1e3)
+        res["pin_cost"] = {k: {"wall_ms_per_step": statistics.median(v), "walls": v}
+                           for k, v in pin_walls.items()}
     return res
 
 
+def _one_rank_group():
+    """A process group of this process alone over NCCL (phase 9b), joined as
+    ``torchrun --nproc_per_node 1`` would describe it."""
+    from mgnns_tpu_torch.parallel import multihost
+    from mgnns_tpu_torch.parallel.mesh import create_mesh
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    with mock.patch.dict(os.environ, env):
+        if not multihost.initialize(device="cuda"):
+            raise SystemExit("phase 9b: the 1-rank NCCL process group did not form")
+    return create_mesh(1, device="cuda")
+
+
 def phase8(setup: dict, root: str) -> None:
-    """Device-resident training through captured steps (see the module's
-    docstring)."""
+    """Device-resident training through captured steps, and phase 9b (see
+    the module's docstring)."""
+    import torch.distributed as dist
+
     t_phase = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="mgnns_graphs_")
     with open(os.path.join(workdir, "label.json"), "w") as f:
         json.dump(LABELS, f)
+    mesh = _one_rank_group()
+    log(f"phase 9b: a process group of 1 rank over {dist.get_backend()}; mesh "
+        f"{mesh.mesh_dim_names} of shape {tuple(mesh.shape)}")
     failed = []  # checked after the CLI run, so that one call reports everything
     for dtype in ("float32", "bfloat16"):
-        res = _phase8_dtype(setup, workdir, dtype)
+        res = _phase8_dtype(setup, workdir, dtype, mesh)
         for mode in ("deterministic", "default"):
             c = res[mode]
             log(f"phase 8 {dtype}: graph path vs loop path, one epoch of 4 steps from the same "
-                f"state at dropout 0.5, cuDNN {mode} algorithms: bit-equal {c['equal']}; step "
-                f"losses graph {c['losses']['graph']} loop {c['losses']['loop']}; max relative "
-                f"loss difference {c['loss_err']}, parameters {c['param_err']} and BN "
-                f"statistics {c['stats_err']} of each leaf's scale")
+                f"state at dropout 0.5, cuDNN {mode} algorithms around the step (the trunk "
+                f"convs pin deterministic ones either way): bit-equal {c['equal']}; step losses "
+                f"graph {c['losses']['graph']} loop {c['losses']['loop']}; max relative loss "
+                f"difference {c['loss_err']}, parameters {c['param_err']} and BN statistics "
+                f"{c['stats_err']} of each leaf's scale")
         log(f"phase 8 {dtype}: capture {res['capture_s']} s (train, deterministic cuDNN), "
             f"{res['recapture_s']} s (train, default), {res['eval_capture_s']} s (eval); "
-            f"wrapper calls during capture (K1, K2) {res['wrapper_calls_capture']}; peak device "
-            f"memory graph epoch {res['peak_bytes_graph']} bytes, loop epoch "
+            f"wrapper calls during capture (K1, K2) {res['wrapper_calls_capture_graph']}; peak "
+            f"device memory graph epoch {res['peak_bytes_graph']} bytes, loop epoch "
             f"{res['peak_bytes_loop']} bytes; {card_line()}")
         log(f"phase 8 {dtype}: eval graph vs loop: predictions equal {res['eval_preds_equal']}, "
             f"loss {res['eval_loss']}")
         for key in ("train_graph", "train_loop", "eval_graph", "eval_loop"):
             log(f"phase 8 {dtype}: {key}: {res[key]}; {card_line()}")
+        if "pin_cost" in res:
+            log(f"phase 8 {dtype}: the cost of fault 3.4's repair, per-step wall in turns "
+                f"(new = the pin with cuDNN's deterministic algorithms, old = the pin before "
+                f"the repair): {res['pin_cost']}; {card_line()}")
+        c = res["mesh_vs_graph"]
+        log(f"phase 9b {dtype}: the 1-rank NCCL mesh engine's captured step vs phase 8's "
+            f"captured step from the same state, one epoch of 4 steps: bit-equal {c['equal']}; "
+            f"losses {c['losses']['mesh']} vs {c['losses']['graph']}; max relative loss "
+            f"difference {c['loss_err']}, parameters {c['param_err']} and BN statistics "
+            f"{c['stats_err']} of each leaf's scale; eval predictions equal "
+            f"{res['mesh_eval_preds_equal']}, loss {res['eval_loss']['mesh']}")
+        log(f"phase 9b {dtype}: capture {res['mesh_capture_s']} s (train); wrapper calls "
+            f"during capture (K1, K2) {res['wrapper_calls_capture_mesh']}; peak device memory "
+            f"of the mesh epoch {res['peak_bytes_mesh']} bytes (phase 8's graph epoch "
+            f"{res['peak_bytes_graph']}); {card_line()}")
+        for key in ("train_mesh", "eval_mesh"):
+            log(f"phase 9b {dtype}: {key}: {res[key]} (beside phase 8's "
+                f"{res[key.replace('mesh', 'graph')]}); {card_line()}")
         g = res["train_graph"]
         if not (g["k1_per_step"] == 1 and g["k2_per_step"] == 1
                 and res["eval_graph"]["k1_per_forward"] == 1):
@@ -1658,15 +1783,22 @@ def phase8(setup: dict, root: str) -> None:
         c = res["deterministic"]
         if not (res["eval_preds_equal"] and c["loss_err"] <= 1e-6 and c["param_err"] <= 1e-6):
             failed.append(f"{dtype}: the graph path disagrees with the loop path")
+        if not res["default"]["equal"]:
+            failed.append(f"{dtype}: under the library defaults the graph and loop paths are "
+                          "not bit-equal (fault 3.4)")
+        m, c = res["train_mesh"], res["mesh_vs_graph"]
+        if not (m["k1_per_step"] == 1 and m["k2_per_step"] == 1
+                and res["eval_mesh"]["k1_per_forward"] == 1):
+            failed.append(f"9b {dtype}: a mesh replay did not launch K1 and K2 once each")
+        if not (res["mesh_eval_preds_equal"] and c["loss_err"] <= 1e-6 and c["param_err"] <= 1e-6
+                and c["stats_err"] <= 1e-6):
+            failed.append(f"9b {dtype}: the 1-rank mesh step disagrees with phase 8's step")
 
     # (c) the CLI with every table flag and a trace of the first epoch
     trace_dir = os.path.join(root, "trace")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        res = run_cli(root, "fusion_tables",
-                      ["--limit_samples", "32", "--epochs", "2", "-b", "16",
-                       "--compute_dtype", "bfloat16", "--device_text",
-                       "--device_images", "--cache_eval_batches", "--profile_dir", trace_dir],
+        res = run_cli(root, "fusion_tables", P8_CLI_FLAGS + ["--profile_dir", trace_dir],
                       forwards=3 * 3, steps=3, phase="phase 8")
     text = buf.getvalue()
     log(text.rstrip())
@@ -1688,9 +1820,329 @@ def phase8(setup: dict, root: str) -> None:
         raise SystemExit("phase 8: the CLI did not put every split in tables and replay them")
     if not (k1 >= 2 and k2 >= 2):
         raise SystemExit("phase 8: the first epoch's trace holds no K1 or K2 events")
-    log(f"phase 8: {time.perf_counter() - t_phase} s; {card_line()}")
+    dist.destroy_process_group()
+    log(f"phase 8 (with 9b): {time.perf_counter() - t_phase} s; {card_line()}")
     if failed:
         raise SystemExit("phase 8: " + "; ".join(failed))
+
+
+# ------------------------------------------------------------------ phase 9
+
+P9_STEPS, P9_RANKS = 4, 2
+
+
+class _Split:
+    """A split held in arrays, with what ``DeviceLoader`` reads of a
+    ``TumblrDataset``; phase 9a's ranks load it from one file."""
+
+    def __init__(self, arrays: dict):
+        self.text = types.SimpleNamespace(**{k: arrays[k] for k in ("ids", "lens", "mask",
+                                                                     "eids")})
+        self.labels = arrays["label"]
+        self.images = arrays["image"]
+        self.image_size = self.images.shape[1]
+        self.global_len = len(self.labels)
+        self.record_offset = 0
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+    def cacheable_images(self) -> bool:
+        return True
+
+    def load_image(self, i, rng=None) -> np.ndarray:
+        return self.images[int(i)]
+
+
+def _phase9_model(spec: dict):
+    """(apply_fn, params, stats) of phase 9a's full-width fusion model on the
+    card, from the seed in ``spec``; every rank draws the same weights."""
+    cfg = ModelConfig(vocab_size=spec["vocab_size"], edges_num=spec["num_edges"])
+    params, stats, consts = mgnns_init(cfg, num_edges=spec["num_edges"], seed=9, device="cuda",
+                                       **spec["inputs"])
+
+    def apply_fn(p, bs, batch, *, train, generator, axis=None):
+        logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=cfg, train=train,
+                                          generator=generator, axis=axis)
+        return logits, new_bs, aux.get("head_diversity", 0.0)
+
+    return apply_fn, params, stats
+
+
+# Adam at lr 1e-7: its first update is the gradient's sign, so where a
+# rounding difference flips the sign of a near-zero gradient element the
+# parameter moves by 2 lr one way or the other; at 1e-7 that stays inside
+# the 1e-4 of a leaf's scale that 2 ranks are held to, at the default 5e-5
+# it would not (2 lr x 10 on the LSTM's ~0.08 weights)
+P9_ENGINE = dict(num_classes=len(LABELS), lr=1e-7, steps_per_epoch=P9_STEPS,
+                 aux_loss_weight=0.1, device="cuda")
+
+
+def phase9_rank(workdir: str) -> None:
+    """One rank of phase 9a, started by :func:`phase9a` with torchrun's
+    environment: 4 train steps and an eval epoch of the full-width model on
+    its rows of the global batch of 16, from device tables; the results go
+    to ``<workdir>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from mgnns_tpu_torch.parallel import multihost
+    from mgnns_tpu_torch.parallel.input import make_input_plan
+    from mgnns_tpu_torch.parallel.mesh import create_mesh
+
+    spec = torch.load(os.path.join(workdir, "phase9.pt"), weights_only=False)
+    rank = int(os.environ["RANK"])
+    backend = spec["backend"]
+    device = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    multihost.initialize(backend=backend, device=device)
+    mesh = create_mesh(P9_RANKS, device="cuda")
+    # bytes and calls of every all-reduce the step makes
+    sent = {"bytes": 0, "calls": 0}
+    all_reduce = dist.all_reduce
+
+    def counted(t, *a, **kw):
+        sent["bytes"] += t.numel() * t.element_size()
+        sent["calls"] += 1
+        return all_reduce(t, *a, **kw)
+
+    dist.all_reduce = counted
+    apply_fn, params, stats = _phase9_model(spec)
+    splits = {k: _Split(spec[k]) for k in ("train", "val")}
+    plans = {k: make_input_plan(P9_RANKS, len(v), TRAIN_BATCH) for k, v in splits.items()}
+    train_ld = DeviceLoader(splits["train"], plans["train"].Bd, shuffle=True, seed=0,
+                            device_text=True, device_images=True, device="cuda",
+                            plan=plans["train"])
+    val_ld = DeviceLoader(splits["val"], plans["val"].Bd, device_text=True, device_images=True,
+                          device="cuda", plan=plans["val"])
+    eng = Engine(apply_fn, params, stats, mesh=mesh, **P9_ENGINE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sent.update(bytes=0, calls=0)
+    edge_max.launches = edge_max.bwd_launches = 0
+    tr = eng.train_epoch(train_ld)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "backend": backend, "losses": tr["step_losses"],
+           "fused": bool(tr.get("fused")), "train_s": tr["epoch_seconds"],
+           "sent": dict(sent), "k1_k2_train": (edge_max.launches, edge_max.bwd_launches),
+           "peak_bytes": torch.cuda.max_memory_allocated(), "device": str(torch.cuda.current_device())}
+    edge_max.launches = edge_max.bwd_launches = 0
+    ev = eng.eval_epoch(val_ld, collect_preds=True)
+    out.update(k1_eval=edge_max.launches, eval_loss=ev["loss"],
+               preds=dict(zip(ev["sample_index"].tolist(), ev["preds"].tolist())),
+               state=[t.detach().cpu() for t in tree_leaves(eng.params) + tree_leaves(eng.batch_stats)]
+               if rank == 0 else None,
+               checksum=float(sum(t.double().sum() for t in eng._state_tensors())))
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _phase9_spec(setup: dict, workdir: str, backend: str) -> dict:
+    """64 train and 32 val records of phase 3's vocabulary at 448 px
+    (synthetic pixels), encoded once here, and the model's seeded inputs."""
+    vocab, graph, texts = setup["vocab"], setup["graph"], setup["texts"]
+    r = np.random.default_rng(9)
+    with open(os.path.join(workdir, "label.json"), "w") as f:
+        json.dump(LABELS, f)
+    data_cfg = DataConfig(data_root_path=workdir, image_backend="synthetic")
+    spec = {"backend": backend, "vocab_size": len(vocab), "num_edges": graph.num_edges,
+            "inputs": {"label_embedding": r.standard_normal((7, 300)).astype(np.float32),
+                       "object_A": setup["object_A"], "place_A": setup["place_A"],
+                       "object_inp": r.standard_normal((80, 300)).astype(np.float32),
+                       "place_inp": r.standard_normal((365, 300)).astype(np.float32)}}
+    for name, n, offset in (("train", N_TRAIN, 700), ("val", N_VAL, 800)):
+        ds = TumblrDataset(data_cfg, TextGraphConfig(), name, vocab, graph, image_size=448,
+                           records=_records(texts, n, offset, r))
+        spec[name] = {"ids": ds.text.ids, "lens": ds.text.lens, "mask": ds.text.mask,
+                      "eids": ds.text.eids, "label": ds.labels,
+                      "image": np.stack([ds.load_image(i) for i in range(n)])}
+    return spec
+
+
+def _one_rank_reference(spec: dict) -> dict:
+    """The 1-rank run of phase 9a's global batches on this card: the 2 ranks'
+    loader rows concatenated in rank order, through ``Engine.train_step``
+    and ``eval_step`` (no mesh, float32 under the package's pin)."""
+    from mgnns_tpu_torch.parallel.input import make_input_plan
+
+    apply_fn, params, stats = _phase9_model(spec)
+    eng = Engine(apply_fn, params, stats, **P9_ENGINE)
+    out: dict = {"losses": [], "preds": {}}
+    for name, shuffle in (("train", True), ("val", False)):
+        split = _Split(spec[name])
+        lds = [DeviceLoader(split, TRAIN_BATCH // P9_RANKS, shuffle=shuffle, seed=0,
+                            device="cuda", plan=make_input_plan(P9_RANKS, len(split), TRAIN_BATCH,
+                                                                position=p, process_index=0,
+                                                                process_count=1))
+               for p in range(P9_RANKS)]
+        cm = confusion_init(len(LABELS), "cuda")
+        for parts in zip(*lds):
+            batch = {}
+            for k in parts[0]:
+                if k == "weight_total":
+                    continue
+                vs = [b[k] for b in parts]
+                batch[k] = (torch.cat(vs) if isinstance(vs[0], torch.Tensor)
+                            else np.concatenate([np.atleast_1d(v) for v in vs]))
+            if name == "train":
+                out["losses"].append(float(eng.train_step(batch, cm)))
+            else:
+                _, p = eng.eval_step(batch, cm)
+                w = batch["weight"].astype(bool)
+                out["preds"].update(zip(batch["sample_index"][w].tolist(),
+                                        p.cpu().numpy()[w].tolist()))
+    out["state"] = tree_leaves(eng.params) + tree_leaves(eng.batch_stats)
+    out["paths"] = [f"params{p}" for p in tree_paths(eng.params)] + \
+        [f"stats{p}" for p in tree_paths(eng.batch_stats)]
+    return out
+
+
+def _state_errors(got: list, want: list, paths: list) -> tuple[float, list]:
+    """Max over leaves of max |got - want| / the leaf's scale, the scale
+    floored at 1e-3 of the largest leaf's (tests/torch_train_common.
+    compare_trees: a zero-initialized bias after a few steps at lr 1e-7 has a
+    scale of ~1e-8, and one flipped Adam sign there is all of it), and the
+    three worst leaves by their own scale."""
+    scales = [max(float(b.float().abs().max()), 1e-30) for b in want]
+    floor = 1e-3 * max(scales)
+    errs = [float((a.float() - b.cpu().float()).abs().max()) for a, b in zip(got, want)]
+    worst = sorted(zip((e / s for e, s in zip(errs, scales)), errs, scales, paths),
+                   reverse=True)[:3]
+    return max(e / max(s, floor) for e, s in zip(errs, scales)), worst
+
+
+def _spawn_ranks(workdir: str, n: int) -> None:
+    """Start ``n`` ranks of this script as torchrun would, wait for all, and
+    fail if any fails or they outlast 600 s."""
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE=str(n), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--phase9-rank", workdir], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(text[-6000:])
+            raise SystemExit(f"phase 9a: rank {rank} exited with {p.returncode}")
+
+
+def phase9a(setup: dict) -> None:
+    """Two ranks sharing the card over gloo (NCCL refuses two ranks on one
+    device) against the 1-rank run of their global batches; with two cards
+    or more, two ranks over NCCL too."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share this card with this process
+    runs = [("gloo", "2 ranks on cuda:0 over gloo")]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", "2 ranks on cuda:0 and cuda:1 over NCCL"))
+    else:
+        log(f"phase 9a: only one card seen (torch.cuda.device_count() = "
+            f"{torch.cuda.device_count()}): the 2-rank NCCL run needs two and is not made")
+    ref = None
+    for backend, label in runs:
+        workdir = tempfile.mkdtemp(prefix=f"mgnns_p9_{backend}_")
+        spec = _phase9_spec(setup, workdir, backend)
+        torch.save(spec, os.path.join(workdir, "phase9.pt"))
+        t0 = time.perf_counter()
+        _spawn_ranks(workdir, P9_RANKS)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(P9_RANKS)]
+        if ref is None:
+            ref = _one_rank_reference(spec)
+        got = ranks[0]
+        preds = {k: v for rk in ranks for k, v in rk["preds"].items()}
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+        state_err, worst = _state_errors(got["state"], ref["state"], ref["paths"])
+        steps = len(got["losses"])
+        for rk in ranks:
+            log(f"phase 9a ({label}): rank {rk['rank']} on cuda:{rk['device']}: step losses "
+                f"{rk['losses']} (plan path {rk['fused']}); per step {rk['train_s'] / steps * 1e3} "
+                f"ms of wall, {rk['sent']['bytes'] / steps} bytes all-reduced in "
+                f"{rk['sent']['calls'] / steps} all-reduces; peak device memory "
+                f"{rk['peak_bytes']} bytes; K1, K2 launches in {steps} train steps "
+                f"{rk['k1_k2_train']}, K1 in 2 eval forwards "
+                f"{rk['k1_eval']}; {card_line()}")
+        log(f"phase 9a ({label}): against the 1-rank run of the global batches: losses "
+            f"{ref['losses']}, max relative loss difference {loss_err}; parameters and BN "
+            f"statistics within {state_err} of each leaf's scale (floored at 1e-3 of the "
+            f"largest leaf's; by their own scale, the worst leaves (error/scale, error, scale, "
+            f"leaf): {worst}); the ranks' states equal "
+            f"{ranks[0]['checksum'] == ranks[1]['checksum']}; eval predictions equal "
+            f"{preds == ref['preds']} ({len(preds)} records); {wall} s for the ranks")
+        if not (all(rk["fused"] for rk in ranks) and ranks[0]["losses"] == ranks[1]["losses"]
+                and ranks[0]["checksum"] == ranks[1]["checksum"]):
+            raise SystemExit(f"phase 9a ({label}): the ranks did not run the plan path alike")
+        if backend == "gloo" and not all(rk["k1_k2_train"] == (steps, steps)
+                                         and rk["k1_eval"] == 2 for rk in ranks):
+            raise SystemExit("phase 9a: a rank did not launch K1 and K2 once per forward "
+                             "and backward")
+        if not (loss_err <= 1e-5 and state_err <= 1e-4 and preds == ref["preds"]
+                and len(preds) == N_VAL):
+            raise SystemExit(f"phase 9a ({label}): 2 ranks disagree with 1 rank of the global "
+                             "batch")
+    log(f"phase 9a: {time.perf_counter() - t_phase} s; {card_line()}")
+
+
+def phase9c(root: str) -> None:
+    """The training CLI under ``torchrun --nproc_per_node 1`` with
+    ``--multihost --mesh_data 1`` and phase 8's table flags, whose prediction
+    file must equal phase 8's non-distributed run's."""
+    t_phase = time.perf_counter()
+    runs = [(1, "fusion_tables_torchrun")]
+    if torch.cuda.device_count() >= 2:
+        runs.append((2, "fusion_tables_torchrun2"))
+    else:
+        log("phase 9c: only one card seen: the 2-rank NCCL CLI run needs two and is not made")
+    want = _pred_rows(os.path.join(root, "fusion_tables"))
+    for nproc, name in runs:
+        out = os.path.join(root, name)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+               "--master_port", str(_free_port()), "-m", "mgnns_tpu_torch.cli.main",
+               "--multihost", "--mesh_data", str(nproc), "--data_root_path", root,
+               "--num_labels", "3", "--text_min_count", "1", "-e",
+               "--save_model_path", os.path.join(out, "ckpt"),
+               "--save_experiment_result_path", os.path.join(out, "exp"),
+               "--save_pred_result_path", os.path.join(out, "pred")] + P8_CLI_FLAGS
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log(proc.stdout[-4000:] + proc.stderr[-6000:])
+            raise SystemExit(f"phase 9c: torchrun --nproc_per_node {nproc} exited with "
+                             f"{proc.returncode}")
+        got = _pred_rows(out)
+        epochs = [line for line in proc.stdout.splitlines() if line.startswith("epoch ")]
+        log(f"phase 9c: {' '.join(cmd[1:])}: {wall} s; {epochs}; prediction file of "
+            f"{len(got) - 1} records, equal to the non-distributed run's (phase 8) "
+            f"{got == want}; {card_line()}")
+        if nproc == 1 and got != want:
+            raise SystemExit("phase 9c: the 1-rank torchrun CLI's predictions differ from the "
+                             "non-distributed run's")
+        if nproc > 1 and sorted(row.split("\t")[0] for row in got) != \
+                sorted(row.split("\t")[0] for row in want):
+            # 2 ranks shuffle by the input plan, so their training differs from
+            # 1 rank's: every record must be there, once
+            raise SystemExit("phase 9c: the 2-rank CLI's prediction file misses records")
+    log(f"phase 9c: {time.perf_counter() - t_phase} s; {card_line()}")
+
+
+def _pred_rows(out: str) -> list[str]:
+    files = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(out, "pred")) for f in fs]
+    if len(files) != 1:
+        raise SystemExit(f"phase 9c: expected one prediction file under {out}, got {files}")
+    with open(files[0]) as f:
+        return f.read().splitlines()
 
 
 def main() -> int:
@@ -1734,6 +2186,8 @@ def main() -> int:
     phase6(root)
     phase7(root, k1)
     phase8(setup, root)
+    phase9a(setup)
+    phase9c(root)
 
     log(f"total {time.perf_counter() - t_start} s")
     log(card_line())
@@ -1743,11 +2197,17 @@ def main() -> int:
                    "export.load_exported", "cli.predict --from_exported",
                    "cli.serve --from_exported",
                    "engine.graphs (captured train and eval steps over device tables)",
-                   "cli.main --device_text --device_images"]
+                   "cli.main --device_text --device_images",
+                   "Engine(mesh=...) on 2 ranks over gloo, each rank's forward",
+                   "Engine(mesh=...) on 1 rank over NCCL, captured train and eval steps",
+                   "torchrun cli.main --multihost --mesh_data 1"]
     k2["paths"] = ["engine.train.Engine.train_step", "cli.main (text-only, fusion)",
                    "cli.main --init_from_reference",
                    "engine.graphs (captured train steps over device tables)",
-                   "cli.main --device_text --device_images"]
+                   "cli.main --device_text --device_images",
+                   "Engine(mesh=...) on 2 ranks over gloo, each rank's backward",
+                   "Engine(mesh=...) on 1 rank over NCCL, captured train steps",
+                   "torchrun cli.main --multihost --mesh_data 1"]
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -1755,4 +2215,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase9-rank"]:
+        phase9_rank(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

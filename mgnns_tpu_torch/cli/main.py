@@ -22,10 +22,22 @@ one of three things:
 ``--platform`` picks the device: ``cuda`` (the default, which raises without
 a card) or ``cpu``.
 
-Example (text-only slice on the CPU)::
+``--mesh_data N`` trains on N ranks, one process per card started by
+``torchrun``, as the JAX CLI trains on a data axis of N devices: the global
+batch ``-b`` splits over the ranks (each runs ``b / N`` rows of it), each
+split gets an input plan per rank (:mod:`mgnns_tpu_torch.parallel.input`),
+and rank 0 writes the checkpoints, the preprocessing and the result files.
+The world must be N ranks; the backend follows ``--platform`` (NCCL on
+``cuda``, gloo on ``cpu``).  ``--multihost`` also joins the process group,
+and on several ``torchrun`` nodes each node reads only its contiguous slice
+of every split.  ``--mesh_model`` above 1 is ``ROADMAP.md`` queue 1 item 6b.
+
+Examples (text-only slice on the CPU; two ranks on two cards)::
 
     python -m mgnns_tpu_torch.cli.main --platform cpu --data_root_path data \\
         --pmi_phase val --train_phase val --text_only --epochs 2 -b 64
+    python -m torch.distributed.run --nproc_per_node 2 -m mgnns_tpu_torch.cli.main \\
+        --mesh_data 2 --data_root_path data --epochs 2 -b 32
 """
 
 from __future__ import annotations
@@ -41,7 +53,8 @@ import torch
 _FUSED_SEGMENTS = ("splits the JAX package's whole-epoch XLA program when it does not compile; "
                    "its counterpart in the port is one captured train step replayed once per "
                    "batch (mgnns_tpu_torch/engine/graphs.py), which has no epoch program to split")
-_MULTI_DEVICE = "waits for multi-device training, ROADMAP.md queue 1 item 6"
+_MODEL_AXIS = ("the mesh's model axis (sharded tables and projections) waits for ROADMAP.md "
+               "queue 1 item 6b")
 _TPU_COMPILER = ("a TPU compiler flag; its counterpart in the port is the nvcc build of the "
                  "kernels (mgnns_tpu_torch/kernels/build.py), which takes no flags")
 
@@ -142,9 +155,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "parameters stay float32")
     p.add_argument("--image_backend", type=str, default="synthetic", choices=["pil", "synthetic"])
     p.add_argument("--image_root", type=str, default=".")
-    p.add_argument("--mesh_data", type=int, default=1, help="rejected above 1: item 6")
-    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6")
-    p.add_argument("--multihost", action="store_true", help="rejected: item 6")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="data-parallel ranks: run under torchrun with this many processes")
+    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6b")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's process group; on several nodes each node loads "
+                        "its own record slice (see mgnns_tpu_torch/parallel/multihost.py)")
     pg = p.add_mutually_exclusive_group()
     pg.add_argument("--use_pallas", dest="use_pallas", action="store_true", default=None,
                     help="rejected: the CUDA kernels always run on the card")
@@ -190,9 +206,7 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
          "mgnns_tpu_torch/kernels/edge_max.py, whose plain versions run only on CPU tensors"),
         ("--libtpu_init_args", args.libtpu_init_args is not None, _TPU_COMPILER),
         ("--perf_preset", args.perf_preset, _TPU_COMPILER),
-        ("--mesh_data", args.mesh_data != 1, _MULTI_DEVICE),
-        ("--mesh_model", args.mesh_model != 1, _MULTI_DEVICE),
-        ("--multihost", args.multihost, _MULTI_DEVICE),
+        ("--mesh_model", args.mesh_model != 1, _MODEL_AXIS),
     )
     return [f"{flag}: {why}" for flag, on, why in checks if on]
 
@@ -206,6 +220,34 @@ def main(argv=None) -> dict:
                            or args.init_from_reference):
         raise SystemExit("--object_trunk_ckpt/--place_trunk_ckpt/--init_from_reference need "
                          "the fusion model; drop --text_only")
+    # args-only checks first, before the vocabulary, the graph and the datasets
+    for name, b in (("-b/--batch_size", args.batch_size),
+                    ("--eval_batch_size", args.eval_batch_size)):
+        if b and b % args.mesh_data:
+            raise SystemExit(f"{name}={b} must divide by --mesh_data={args.mesh_data} "
+                             "(each rank runs its share of every batch)")
+    import torch.distributed as dist
+
+    from mgnns_tpu_torch.parallel import multihost
+
+    owned = not dist.is_initialized()
+    distributed = False
+    if args.multihost or args.mesh_data > 1:
+        distributed = multihost.initialize(device=args.platform)
+    world = dist.get_world_size() if distributed else 1
+    if args.mesh_data != world:
+        raise SystemExit(
+            f"--mesh_data {args.mesh_data} needs a world of {args.mesh_data} ranks, one per "
+            f"card, and this one has {world}: start it with python -m torch.distributed.run "
+            f"--nproc_per_node {args.mesh_data} -m mgnns_tpu_torch.cli.main ...")
+    try:
+        return _main(args, distributed)
+    finally:
+        if distributed and owned:
+            dist.destroy_process_group()
+
+
+def _main(args: argparse.Namespace, distributed: bool) -> dict:
     from mgnns_tpu_torch.config import DataConfig, ModelConfig, TextGraphConfig
     from mgnns_tpu_torch.data.dataset import TumblrDataset, load_constants
     from mgnns_tpu_torch.data.loader import DeviceLoader
@@ -214,10 +256,19 @@ def main(argv=None) -> dict:
     from mgnns_tpu_torch.models.import_reference import (
         import_reference_state_dict, load_torch_state_dict,
     )
+    from mgnns_tpu_torch.parallel import multihost
     from mgnns_tpu_torch.serving import save_preproc
     from mgnns_tpu_torch.utils import resolve_device
 
     device = resolve_device(args.platform)
+    mesh = None
+    if distributed:
+        from mgnns_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(data=args.mesh_data, device=device)
+    rank0 = not distributed or torch.distributed.get_rank() == 0
+    # several hosts: each reads its contiguous slice of every split
+    hosts = multihost.process_count() if args.multihost else 1
     graph_cfg = TextGraphConfig(
         text_min_count=args.text_min_count, window_size=args.window_size,
         ngram=args.ngram, min_cooccurrence=args.min_cooccurence,
@@ -253,7 +304,8 @@ def main(argv=None) -> dict:
     with open(os.path.join(root, "label.json")) as f:
         label_map = json.load(f)
     ckpt_dir = os.path.join(args.save_model_path, args.model_name)
-    save_preproc(ckpt_dir, vocab, graph, label_map, graph_cfg)
+    if rank0:
+        save_preproc(ckpt_dir, vocab, graph, label_map, graph_cfg)
 
     records: dict = {}
     datasets: dict = {}
@@ -267,10 +319,14 @@ def main(argv=None) -> dict:
             limit = 0
         key = (phase, train, limit)
         if key not in datasets:
+            recs = records[phase][:limit] if limit else records[phase]
+            start, stop = 0, len(recs)
+            if hosts > 1:
+                start, stop, _ = multihost.process_batch_slice(len(recs), args.batch_size)
             datasets[key] = TumblrDataset(
                 data_cfg, graph_cfg, phase, vocab, graph, image_size=args.image_size,
-                train_transforms=train,
-                records=records[phase][:limit] if limit else records[phase])
+                train_transforms=train, records=recs[start:stop], global_len=len(recs),
+                record_offset=start)
         return datasets[key]
 
     train_ds = make_ds(args.train_phase, not args.no_augmentation)
@@ -300,7 +356,8 @@ def main(argv=None) -> dict:
                                  device=device)
         batch_stats: dict = {}
 
-        def apply_fn(p, bs, batch, *, train, generator):
+        def apply_fn(p, bs, batch, *, train, generator, axis=None):
+            # no BatchNorm: the data axis reaches dropout through the generator
             return text_model_apply(p, batch, ngram=graph_cfg.ngram, dropout_rate=args.dropout,
                                     train=train, generator=generator), bs
     else:
@@ -339,13 +396,34 @@ def main(argv=None) -> dict:
                     import_torch_state_dict(sd, depth)
                 print(f"loaded {side} trunk (resnet{depth}) from {ckpt_path}")
 
-        def apply_fn(p, bs, batch, *, train, generator):
+        def apply_fn(p, bs, batch, *, train, generator, axis=None):
             logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=model_cfg, train=train,
-                                              generator=generator)
+                                              generator=generator, axis=axis)
             return logits, new_bs, aux.get("head_diversity", 0.0)
 
+    # on several ranks every split gets this rank's input plan per batch size;
+    # one rank's batches are the global batches (the JAX CLI builds no mesh
+    # at --mesh_data 1 either)
+    plans: dict = {}
+
+    def plan_for(ds, batch):
+        if args.mesh_data == 1:
+            return None
+        from mgnns_tpu_torch.parallel.input import make_input_plan
+
+        key = (id(ds), batch)
+        if key not in plans:
+            plans[key] = make_input_plan(
+                args.mesh_data, len(ds), batch // hosts, n_global=ds.global_len,
+                process_index=multihost.process_index() if hosts > 1 else 0,
+                process_count=hosts)
+        return plans[key]
+
+    eval_batch = args.eval_batch_size or args.batch_size
     # the LR schedule's epoch counts applied optimizer steps
-    train_batches = (len(train_ds) + args.batch_size - 1) // args.batch_size
+    train_plan = plan_for(train_ds, args.batch_size)
+    train_batches = (train_plan.num_batches if train_plan is not None
+                     else (len(train_ds) + args.batch_size - 1) // args.batch_size)
     engine = Engine(
         apply_fn, params, batch_stats,
         num_classes=args.num_labels, lr=args.lr, lrp=args.lrp,
@@ -355,20 +433,24 @@ def main(argv=None) -> dict:
         accumulation_steps=args.grad_accumulation_steps,
         freeze_trunks=args.freeze_trunks and not args.text_only,
         aux_loss_weight=args.regu_weight, seed=args.seed, checkpoint_dir=ckpt_dir,
-        max_to_keep=args.max_to_keep, device=device,
+        max_to_keep=args.max_to_keep, device=device, mesh=mesh,
     )
 
     # the greedy device-memory budget of the JAX CLI: pixel tables go to the
     # splits in order, train first (it is read every epoch), while they fit;
     # the splits past the budget stream their pixels, and cached eval batches
-    # share what is left
+    # share what is left.  The budget is per card: under a mesh a table
+    # holds this rank's rows
     input_budget = args.device_images_budget_gb * 1e9
     device_images_for: dict = {}
     if args.device_images:
-        for ds in (train_ds, val_ds, test_ds):
+        for ds, batch in ((train_ds, args.batch_size), (val_ds, eval_batch),
+                          (test_ds, eval_batch)):
             if id(ds) in device_images_for:
                 continue
-            size = len(ds) * args.image_size * args.image_size * 3
+            plan = plan_for(ds, batch)
+            rows = plan.S if plan is not None else len(ds)
+            size = rows * args.image_size * args.image_size * 3
             grant = size <= input_budget and ds.cacheable_images()
             device_images_for[id(ds)] = grant
             if grant:
@@ -384,9 +466,10 @@ def main(argv=None) -> dict:
         key = (id(ds), shuffle)
         if key not in loaders:
             dev_imgs = device_images_for.get(id(ds), False)
+            plan = plan_for(ds, args.batch_size if shuffle else eval_batch)
             loaders[key] = DeviceLoader(
-                ds, args.batch_size if shuffle else (args.eval_batch_size or args.batch_size),
-                shuffle=shuffle, seed=args.seed, num_threads=args.workers,
+                ds, plan.Bd if plan is not None else args.batch_size if shuffle else eval_batch,
+                shuffle=shuffle, seed=args.seed, num_threads=args.workers, plan=plan,
                 with_images=not args.text_only,
                 # a cache pays only for a loader read more than once (or whose
                 # pixels are in a table, which makes its batches small)

@@ -22,7 +22,7 @@ Examples::
         --input posts.jsonl
 
 Not taken yet, rejected by name: ``--mesh_data`` / ``--mesh_model`` above 1
-(multi-device, ``ROADMAP.md`` queue 1 item 6).
+(the Predictor's mesh path, ``ROADMAP.md`` queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ import argparse
 import json
 import sys
 
-MULTI_DEVICE = "multi-device serving waits for ROADMAP.md queue 1 item 6"
+MULTI_DEVICE = ("multi-device serving (the Predictor's mesh path) waits for ROADMAP.md queue 1 "
+                "item 6b")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,8 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--step", type=int, default=None, help="checkpoint step (default latest)")
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                    help="device to run on; 'cuda' raises when no card is present")
-    p.add_argument("--mesh_data", type=int, default=1, help="rejected above 1: item 6")
-    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6")
+    p.add_argument("--mesh_data", type=int, default=1, help="rejected above 1: item 6b")
+    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6b")
     return p
 
 

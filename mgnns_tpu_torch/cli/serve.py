@@ -62,8 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--platform", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="device to run on; 'cuda' raises when no card is present")
-    p.add_argument("--mesh_data", type=int, default=1, help="rejected above 1: item 6")
-    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6")
+    p.add_argument("--mesh_data", type=int, default=1, help="rejected above 1: item 6b")
+    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6b")
     return p
 
 

@@ -59,7 +59,13 @@ class TumblrDataset:
         records: list[dict] | None = None,
         cache_images: bool = True,
         cache_limit_bytes: int = 4 << 30,
+        global_len: int | None = None,
+        record_offset: int = 0,
     ):
+        """``records``: the split's records, or this host's contiguous slice
+        of them on several hosts, whose ``global_len`` is then the split's
+        length and ``record_offset`` the slice's first record (the JAX
+        package's ``dataset.global_len`` and host offset)."""
         self.cfg = data_cfg
         self.phase = phase
         self.image_size = image_size
@@ -76,6 +82,8 @@ class TumblrDataset:
             self.cat2idx = json.load(f)
         self.num_classes = len(self.cat2idx)
         self.labels = np.asarray([self.cat2idx[r["label"]] for r in self.records], np.int32)
+        self.global_len = len(self.records) if global_len is None else global_len
+        self.record_offset = record_offset
 
     def __len__(self) -> int:
         return len(self.records)

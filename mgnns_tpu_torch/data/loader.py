@@ -31,8 +31,19 @@ DeviceLoader``, with its names and behaviour:
   rest streams.
 
 Tables are built on the consumer's thread, and the plan path runs no
-producer thread.  The JAX loader's mesh plans are not ported (``ROADMAP.md``
-queue 1 item 6).
+producer thread.
+
+On a data axis (``plan=``, an :class:`~mgnns_tpu_torch.parallel.input.
+InputPlan` of this rank, the counterpart of the JAX loader's ``mesh=``) the
+loader serves this rank's rows of every global batch: ``batch_size`` is the
+plan's ``Bd``, an epoch is the plan's ``num_batches`` on every rank (a rank
+whose records run out runs all-padding batches), and each batch carries
+``weight_total``, the global batch's weight sum.  The tables hold only this
+rank's ``S`` rows, and :meth:`DeviceLoader.epoch_plan` indexes them with
+position-local ids; the streaming path assembles this rank's rows on the
+host and reads no table, as the JAX loader does under a mesh.  Record ids
+of predictions are the dataset's plus ``record_offset``, the first record
+of this host's slice.
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ import torch
 
 from mgnns_tpu_torch.utils import resolve_device
 
-_HOST_KEYS = ("weight", "label", "sample_index")
+_HOST_KEYS = ("weight", "label", "sample_index", "weight_total")
 
 
 class DeviceLoader:
@@ -67,16 +78,24 @@ class DeviceLoader:
         device_images: bool = False,
         device_text: bool = False,
         device="cuda",
+        plan=None,
     ):
         """``device`` raises when it is CUDA and no card is present.
         ``num_batches`` forces the epoch length: batches past the data's end
         are all padding (``weight`` 0).  ``device_images`` raises unless the
         dataset's pixels are deterministic per sample (eval transforms or
-        the synthetic backend)."""
+        the synthetic backend).  ``plan``: this rank's input plan (see the
+        module's docstring); ``batch_size`` must be its ``Bd``."""
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
-        natural = (len(dataset) + batch_size - 1) // batch_size
+        self.plan = plan
+        self.record_offset = getattr(dataset, "record_offset", 0)
+        if plan is not None and (batch_size != plan.Bd or num_batches is not None):
+            raise ValueError(f"under a plan the batch size is its Bd ({plan.Bd}, got "
+                             f"{batch_size}) and the epoch length its num_batches")
+        natural = (plan.num_batches if plan is not None
+                   else (len(dataset) + batch_size - 1) // batch_size)
         if num_batches is not None and num_batches < natural:
             raise ValueError(f"num_batches={num_batches} < {natural} batches of data")
         self.num_batches = num_batches if num_batches is not None else natural
@@ -98,6 +117,9 @@ class DeviceLoader:
                              "(eval transforms or the synthetic backend)")
         self.device_images = device_images and with_images
         self.device_text = device_text
+        # under a plan the tables feed only the epoch plan: batches stream whole
+        self._stream_text = device_text and plan is None
+        self._stream_images = self.device_images and plan is None
 
     def __len__(self) -> int:
         return self.num_batches
@@ -114,11 +136,11 @@ class DeviceLoader:
             "weight": np.zeros((B,), np.float32),
             "sample_index": np.zeros((B,), np.int32),
         }
-        if not self.device_text:
+        if not self._stream_text:
             batch.update(ids=np.zeros((B, L), np.int32), lens=lens,
                          mask=(np.arange(L)[None, :] < lens[:, None]).astype(np.float32),
                          eids=np.zeros((B, L, W), np.int32))
-        if self.with_images and not self.device_images:
+        if self.with_images and not self._stream_images:
             s = self.ds.image_size
             batch["image"] = np.zeros((B, s, s, 3), np.uint8)
         return batch
@@ -142,10 +164,10 @@ class DeviceLoader:
             "weight": (np.arange(B) < n).astype(np.float32),
             "sample_index": full_idx.astype(np.int32),
         }
-        if not self.device_text:
+        if not self._stream_text:
             batch.update(ids=t.ids[full_idx], lens=t.lens[full_idx], mask=t.mask[full_idx],
                          eids=t.eids[full_idx])
-        if self.with_images and not self.device_images:
+        if self.with_images and not self._stream_images:
             seeds = [random.Random(rng.getrandbits(32)) for _ in full_idx]
             if pool is not None:
                 imgs = list(pool.map(self.ds.load_image, full_idx, seeds))
@@ -160,30 +182,46 @@ class DeviceLoader:
         """The dataset's device tables, shared by every loader over it."""
         return self.ds.__dict__.setdefault("_device_tables", {})
 
+    def _table_rows(self) -> np.ndarray | None:
+        """The dataset rows of the tables: this rank's under a plan, else
+        None (every row)."""
+        return None if self.plan is None else self.plan.rank_table_rows()
+
+    def _table_key(self, kind: str) -> tuple:
+        rows = self._table_rows()
+        return (kind, str(self.device), None if rows is None else rows.tobytes())
+
     def _ensure_text_tables(self) -> dict:
         """``ids``, ``lens``, ``mask``, ``eids`` and ``label`` of the whole
-        split on the device, uploaded once."""
-        key = ("text", str(self.device))
+        split (of this rank's rows under a plan) on the device, uploaded
+        once."""
+        key = self._table_key("text")
         cache = self._tables()
         if key not in cache:
             t = self.ds.text
             src = {"ids": t.ids, "lens": t.lens, "mask": t.mask, "eids": t.eids,
                    "label": self.ds.labels}
+            rows = self._table_rows()
+            if rows is not None:
+                src = {k: v[rows] for k, v in src.items()}
             cache[key] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                           for k, v in src.items()}
         return cache[key]
 
     def _ensure_image_table(self, chunk_rows: int = 128) -> tuple[torch.Tensor, tuple]:
-        """(the split's pixels as a uint8 [N, H*W*3] device table, (H, W, 3)).
-        The pool decodes chunk k+1 while chunk k is copied in, so the host
-        holds about two chunks of pixels."""
-        key = ("image", str(self.device))
+        """(the split's pixels, of this rank's rows under a plan, as a uint8
+        [N, H*W*3] device table, (H, W, 3)).  The pool decodes chunk k+1
+        while chunk k is copied in, so the host holds about two chunks of
+        pixels."""
+        key = self._table_key("image")
         cache = self._tables()
         if key not in cache:
-            N = len(self.ds)
-            probe = self.ds.load_image(0)
+            rows = self._table_rows()
+            rows = np.arange(len(self.ds)) if rows is None else rows
+            N = len(rows)
+            probe = self.ds.load_image(int(rows[0]))
             table = torch.empty((N, probe.size), dtype=torch.uint8, device=self.device)
-            chunks = [range(s, min(s + chunk_rows, N)) for s in range(0, N, chunk_rows)]
+            chunks = [rows[s:s + chunk_rows] for s in range(0, N, chunk_rows)]
             with ThreadPoolExecutor(self.num_threads) as pool:
                 ahead = [pool.submit(self.ds.load_image, i) for i in chunks[0]]
                 for k, rows in enumerate(chunks):
@@ -191,29 +229,47 @@ class DeviceLoader:
                     if k + 1 < len(chunks):
                         ahead = [pool.submit(self.ds.load_image, i) for i in chunks[k + 1]]
                     arr = np.stack([f.result() for f in now]).reshape(len(rows), -1)
-                    table[rows.start:rows.stop].copy_(torch.from_numpy(arr))
+                    start = k * chunk_rows
+                    table[start:start + len(rows)].copy_(torch.from_numpy(arr))
             cache[key] = (table, tuple(probe.shape))
         return cache[key]
 
     def _gather_tables(self, batch: dict) -> dict:
         """Add the table-resident tensors of ``batch``'s samples, gathered
         on the device by ``sample_index``."""
-        if not (self.device_text or self.device_images):
+        if not (self._stream_text or self._stream_images):
             return batch
         idx = torch.from_numpy(np.asarray(batch["sample_index"], np.int64)).to(self.device)
         out = dict(batch)
-        if self.device_text:
+        if self._stream_text:
             tabs = self._ensure_text_tables()
             for k in ("ids", "lens", "mask", "eids"):
                 out[k] = tabs[k].index_select(0, idx)
-        if self.device_images:
+        if self._stream_images:
             table, row_shape = self._ensure_image_table()
             out["image"] = table.index_select(0, idx).view((len(idx),) + row_shape)
         return out
 
+    def _plan_epoch(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """(idx, weight, rows, weight_total) of this epoch under a plan, this
+        rank's ``[num_batches, Bd]`` columns (``parallel.input.
+        epoch_index_plan``) and ``[num_batches]`` global sums.  Advances the
+        epoch counter."""
+        from mgnns_tpu_torch.parallel.input import epoch_index_plan
+
+        plan = self.plan
+        idx, wt, rows = (plan.rank_columns(a) for a in
+                         epoch_index_plan(plan, self.epoch, self.seed, self.shuffle))
+        self.epoch += 1
+        return idx, wt, rows, plan.batch_weight_sums()
+
     def _epoch_chunks(self):
         """This epoch's batch index chunks [(indices, forced_n_valid)],
-        advancing the epoch counter (shuffle order differs per epoch)."""
+        advancing the epoch counter (shuffle order differs per epoch); under
+        a plan, each chunk is this rank's padded rows of a global batch."""
+        if self.plan is not None:
+            _, wt, rows, _ = self._plan_epoch()
+            return [(r if len(self.ds) else r[:0], int(w.sum())) for r, w in zip(rows, wt)]
         order = np.arange(len(self.ds))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
@@ -236,9 +292,20 @@ class DeviceLoader:
         ``idx`` and the logical ``row_shapes`` of flattened tables.  None
         unless every input the batches need is in tables (``device_text``,
         and ``device_images`` when images are used).  Advances the epoch
-        counter as an iteration does."""
+        counter as an iteration does.  Under an input plan ``idx`` indexes
+        this rank's table rows, and the plan also holds ``sample_index``
+        (global record ids) and ``weight_total`` ``[num_batches]``."""
         if not (self.device_text and (self.device_images or not self.with_images)):
             return None
+        if self.plan is not None:
+            idx, wt, rows, totals = self._plan_epoch()
+            out = {"tables": dict(self._ensure_text_tables()), "idx": idx, "weight": wt,
+                   "labels": self.ds.labels[rows] if len(self.ds) else np.zeros_like(idx),
+                   "row_shapes": {}, "sample_index": rows + self.record_offset,
+                   "weight_total": totals}
+            if self.device_images:
+                out["tables"]["image"], out["row_shapes"]["image"] = self._ensure_image_table()
+            return out
         chunks = self._epoch_chunks()
         B = self.batch_size
         idx = np.zeros((len(chunks), B), np.int32)
@@ -291,6 +358,8 @@ class DeviceLoader:
         if n_cached and self._cache_complete:
             return
         rng = random.Random(self.seed + self.epoch + 1)
+        totals = (self.plan.batch_weight_sums() if self.plan is not None
+                  else np.zeros(0))[n_cached:]
         # caching requires shuffle=False, so the epoch's batches are the same
         # every epoch: stream what follows the cached prefix
         chunks = self._epoch_chunks()[n_cached:]
@@ -310,12 +379,14 @@ class DeviceLoader:
 
         def produce():
             pool = (ThreadPoolExecutor(self.num_threads)
-                    if self.with_images and not self.device_images else None)
+                    if self.with_images and not self._stream_images else None)
             try:
-                for chunk, n_valid in chunks:
+                for b, (chunk, n_valid) in enumerate(chunks):
                     if stop.is_set():
                         return
                     item = self._assemble(chunk, pool, rng, n_valid)
+                    if self.plan is not None:
+                        item["weight_total"] = np.float32(totals[b])
                     nbytes = sum(np.asarray(v).nbytes for v in item.values())
                     if not put_or_stop((*self._place(item, stream), nbytes)):
                         return

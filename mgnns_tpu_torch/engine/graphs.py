@@ -35,6 +35,14 @@ through a device step counter, which it increments.
   whose device is the CPU the same step runs eagerly over the plan, which
   is how the CPU tests hold this path to the loop path and to the JAX
   package.
+- On a mesh the backend of the data axis decides.  NCCL's collectives (the
+  BatchNorm statistics, the gradient bucket) are captured inside the graph:
+  the process group and its communicator exist before capture
+  (:func:`mgnns_tpu_torch.parallel.multihost.initialize` runs a warm-up
+  collective), and the warm-up steps run them on the capture stream.  gloo
+  cannot be captured, so under gloo the plan path runs the same step
+  eagerly on the card, as on the CPU.  A plan's ``weight_total`` (the
+  global weight sum of each batch) is a static buffer beside ``weight``.
 
 The JAX engine's segment ladder and memory guard, which split an epoch
 program that XLA could not compile, have no counterpart: one captured step
@@ -64,6 +72,8 @@ class _PlanSteps:
         self.row_shapes = {k: tuple(v) for k, v in (plan.get("row_shapes") or {}).items()}
         self.idx = torch.zeros((nb, B), dtype=torch.int64, device=device)
         self.weight = torch.zeros((nb, B), dtype=torch.float32, device=device)
+        self.weight_total = (torch.zeros(nb, dtype=torch.float32, device=device)
+                             if "weight_total" in plan else None)
         self.losses = torch.zeros(nb, dtype=torch.float32, device=device)
         self.preds = None if train else torch.zeros((nb, B), dtype=torch.int64, device=device)
         self.row = torch.zeros(1, dtype=torch.int64, device=device)
@@ -77,6 +87,8 @@ class _PlanSteps:
     def load(self, plan: dict) -> None:
         self.idx.copy_(torch.from_numpy(np.asarray(plan["idx"])))
         self.weight.copy_(torch.from_numpy(np.asarray(plan["weight"])))
+        if self.weight_total is not None:
+            self.weight_total.copy_(torch.from_numpy(np.asarray(plan["weight_total"], np.float32)))
         self.row.zero_()
         self.cm.zero_()
 
@@ -90,6 +102,8 @@ class _PlanSteps:
                 rows = rows.view((idx.shape[0],) + self.row_shapes[k])
             out[k] = rows
         out["weight"] = self.weight.index_select(0, self.row)[0]
+        if self.weight_total is not None:
+            out["weight_total"] = self.weight_total.index_select(0, self.row)[0]
         return out
 
 
@@ -154,9 +168,11 @@ class StepGraphs:
         """Run the plan's ``nb`` steps, capturing each phase's graph on first
         use; returns the seconds spent capturing."""
         capture_s = 0.0
+        axis = self.engine.axis
+        capture = self.engine.device.type == "cuda" and (axis is None or axis.capturable)
         for _ in range(steps.idx.shape[0]):
             phase = phase_of()
-            if self.engine.device.type == "cuda":
+            if capture:
                 graph = steps.graphs.get(phase)
                 if graph is None:
                     tc = time.perf_counter()

@@ -16,7 +16,12 @@ groups.  The update of one applied step, in the chain's order:
 5. subtract ``lr(step)``, the step-decayed learning rate.
 
 ``accumulation_steps > 1`` averages that many micro-step gradients and
-applies the chain once, as ``optax.MultiSteps``.  The arithmetic runs on
+applies the chain once, as ``optax.MultiSteps``.
+
+On a data axis of several ranks (:mod:`mgnns_tpu_torch.parallel`) each rank
+holds its share of the gradient; :func:`reduce_gradients` sums the shares,
+and the loss's, in one flat buffer before the chain, so that the clip, the
+nan-guard's flag and the step count are the same on every rank.  The arithmetic runs on
 ``torch._foreach_*`` lists, so a step costs a few multi-tensor launches and
 no host sync.
 
@@ -80,6 +85,23 @@ def label_params(params: dict, faithful: bool = False, freeze_trunks: bool = Fal
 
     return {name: tree_map(lambda _, n=name: subtree_label(n), sub)
             for name, sub in params.items()}
+
+
+def reduce_gradients(grads: list[torch.Tensor | None], loss: torch.Tensor, axis
+                     ) -> tuple[list[torch.Tensor | None], torch.Tensor]:
+    """(the gradients, the loss) summed over the data ``axis`` in one
+    collective: every present gradient leaf and the rank's share of the loss
+    go through one flat float32 buffer.  A leaf without a gradient (a frozen
+    trunk, a dead module) is left out, the same on every rank, since every
+    rank runs the same model."""
+    from mgnns_tpu_torch.parallel.collectives import all_reduce_sum
+
+    have = [i for i, g in enumerate(grads) if g is not None]
+    summed = all_reduce_sum([grads[i] for i in have] + [loss.reshape(1)], axis)
+    out: list = list(grads)
+    for i, g in zip(have, summed):
+        out[i] = g
+    return out, summed[-1].reshape(())
 
 
 def select_(olds: list[torch.Tensor], news: list[torch.Tensor], ok: torch.Tensor | None) -> None:

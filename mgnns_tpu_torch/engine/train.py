@@ -21,16 +21,35 @@ Port of the JAX package's ``mgnns_tpu/engine/train.py``:
   experiment/pred text files; ``learning(profile_dir=)`` writes a
   ``torch.profiler`` trace of the first epoch.
 
-The step's three phases are ``torch.profiler`` ranges (``engine.forward``,
-``engine.backward``, ``engine.optimizer``).  The engine never inspects the
-model: it takes an ``apply_fn`` of signature
-``(params, batch_stats, batch, *, train, generator) -> (logits,
-new_batch_stats[, aux])``, where ``aux`` is a scalar loss term.  Dropout in
-step ``s`` draws from the engine's :class:`~mgnns_tpu_torch.nn.core.
-SiteGenerators`, seeded by ``(seed, s)``.
+The step's phases are ``torch.profiler`` ranges (``engine.forward``,
+``engine.backward``, ``engine.all_reduce`` under a mesh,
+``engine.optimizer``).  The engine never inspects the model: it takes an
+``apply_fn`` of signature ``(params, batch_stats, batch, *, train,
+generator[, axis]) -> (logits, new_batch_stats[, aux])``, where ``aux`` is a
+scalar loss term.  Dropout in step ``s`` draws from the engine's
+:class:`~mgnns_tpu_torch.nn.core.SiteGenerators`, seeded by ``(seed, s)``.
 
-Not ported (``ROADMAP.md`` queue 1 item 6): the mesh and multihost branches
-and the prediction gather across hosts.
+``Engine(mesh=...)`` (:func:`mgnns_tpu_torch.parallel.mesh.create_mesh`),
+the counterpart of the JAX engine's mesh branches, trains on the data axis
+of one process per card: each rank runs its rows of the global batch, and
+the step computes what one device computes on the global batch.
+
+- at construction every rank takes rank 0's parameters, statistics and
+  optimizer state;
+- ``apply_fn`` gets ``axis=`` (train-mode BatchNorm over the global batch),
+  and the dropout generators carry the axis (the global batch's masks);
+- each rank's loss is its ``sum(ll * w)`` over the global batch's weight
+  sum (``weight_total``, which the input plan carries, so it needs no
+  collective), plus its share of ``aux``; :func:`~mgnns_tpu_torch.engine.
+  optim.reduce_gradients` sums the gradients and the loss over the ranks in
+  one collective, so the clip, the nan-guard and the reported loss are the
+  global ones on every rank;
+- an epoch runs over a loader built with the rank's input plan
+  (``DeviceLoader(plan=...)``), and on several ranks any other loader is
+  refused; the confusion matrix (and the eval losses) are summed over the
+  ranks once per epoch;
+- the test split's predictions are gathered and rank 0 writes the result
+  files; rank 0 writes the checkpoints, every rank restores them.
 """
 
 from __future__ import annotations
@@ -46,19 +65,23 @@ from torch.profiler import record_function
 
 from mgnns_tpu_torch.engine import metrics as M
 from mgnns_tpu_torch.engine.graphs import StepGraphs
-from mgnns_tpu_torch.engine.optim import Optimizer, select_
+from mgnns_tpu_torch.engine.optim import Optimizer, reduce_gradients, select_
 from mgnns_tpu_torch.nn.core import SiteGenerators, derive_seed
 from mgnns_tpu_torch.utils import (
     resolve_device, torch_profile, tree_leaves, tree_paths, tree_to, tree_unflatten,
 )
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Weighted-mean CE over valid rows (reference ``nn.CrossEntropyLoss``)."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
+                  total: torch.Tensor | None = None) -> torch.Tensor:
+    """Weighted-mean CE over valid rows (reference ``nn.CrossEntropyLoss``).
+    ``total``: the weight sum to divide by, when ``weights`` are one rank's
+    rows of a global batch whose weight sum it is (this rank's share of the
+    global mean); ``weights.sum()`` by default."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(1, labels.long()[:, None])[:, 0]
     w = weights.float()
-    return -(ll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return -(ll * w).sum() / torch.clamp(w.sum() if total is None else total.float(), min=1.0)
 
 
 def _unpack(out):
@@ -92,12 +115,19 @@ class Engine:
         max_to_keep: int = 3,
         eval_only: bool = False,
         device="cuda",
+        mesh=None,
     ):
         """``params`` / ``batch_stats`` are moved to ``device``, which raises
         when it is CUDA and no card is present.  ``eval_only`` builds no
-        optimizer state."""
+        optimizer state.  ``mesh``: train on its data axis (see the
+        module's docstring); every rank of it builds the engine."""
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
+        self.axis = None
+        if mesh is not None:
+            from mgnns_tpu_torch.parallel.collectives import DataAxis
+
+            self.axis = DataAxis.of(mesh, self.device)
         self.num_classes = num_classes
         self.aux_loss_weight = aux_loss_weight
         self.nan_guard = nan_guard
@@ -111,16 +141,34 @@ class Engine:
             faithful=faithful_param_groups, accumulation_steps=accumulation_steps,
             freeze_trunks=freeze_trunks, algo=optimizer_algo)
         self.opt_state = self.opt.init(self.params) if self.opt is not None else None
+        self._replicate()
         self.step = 0
         self.checkpointer = None
         if checkpoint_dir is not None:
             from mgnns_tpu_torch.engine.checkpoint import Checkpointer
 
-            self.checkpointer = Checkpointer(checkpoint_dir, max_to_keep)
+            self.checkpointer = Checkpointer(checkpoint_dir, max_to_keep, axis=self.axis)
         self.epoch = 0
         self.best_score = 0.0
-        self._gens = SiteGenerators(self.device)
+        self._gens = SiteGenerators(self.device, self.axis)
         self._graphs = StepGraphs(self)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank writes the run's files (rank 0 of a mesh)."""
+        return self.axis is None or self.axis.rank == 0
+
+    def _replicate(self) -> None:
+        """Give every rank of the mesh rank 0's state."""
+        if self.axis is not None:
+            from mgnns_tpu_torch.parallel.mesh import replicate_tree
+
+            replicate_tree(self._state_tensors(), self.axis)
+
+    def _apply(self, *args, **kw):
+        if self.axis is not None:
+            kw["axis"] = self.axis
+        return self.apply_fn(*args, **kw)
 
     def _state_tensors(self) -> list[torch.Tensor]:
         """Every tensor a train step reads and updates in place."""
@@ -140,6 +188,10 @@ class Engine:
         if self.opt is None:
             raise RuntimeError("Engine was built with eval_only=True; "
                                "it has no optimizer state to train with")
+        if self.axis is not None and self.axis.size > 1 and "weight_total" not in batch:
+            raise ValueError("a batch of a mesh engine needs 'weight_total', its global batch's "
+                             "weight sum (DeviceLoader(plan=...) and "
+                             "parallel.mesh.batch_device_put add it)")
         batch = self._to_device(batch)
         self._gens.reseed(derive_seed(self.seed, self.step))
         loss = self._train_core(batch, cm, self.opt.applies_now(self.opt_state))
@@ -151,37 +203,52 @@ class Engine:
         """The device work of a train step on a device batch, the same on the
         loop path, the eager plan path and in a captured step: it reads no
         host value that changes between steps."""
-        leaves = tree_leaves(self.params)
-        live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
-        with record_function("engine.forward"):
-            logits, new_bs, aux = _unpack(self.apply_fn(
-                tree_unflatten(self.params, live), self.batch_stats, batch, train=True,
-                generator=self._gens.root))
-            loss = cross_entropy(logits, batch["label"], batch["weight"]) + self.aux_loss_weight * aux
-        want = [i for i, p in enumerate(live) if p.requires_grad]
-        grads: list = [None] * len(live)
-        with record_function("engine.backward"):
-            for i, g in zip(want, torch.autograd.grad(loss, [live[i] for i in want], allow_unused=True)):
-                grads[i] = g
+        loss, grads, logits, new_bs = self._loss_and_grads(batch)
         with torch.no_grad(), record_function("engine.optimizer"):
             ok = torch.isfinite(loss) if self.nan_guard else None
-            self.opt.update(leaves, grads, self.opt_state, ok, apply_now)
+            self.opt.update(tree_leaves(self.params), grads, self.opt_state, ok, apply_now)
             stats = tree_leaves(self.batch_stats)
             if stats:
                 select_(stats, [t.detach() for t in tree_leaves(new_bs)], ok)
             weight = batch["weight"] if ok is None else torch.where(ok, batch["weight"], 0.0)
             M.confusion_update(cm, logits.argmax(dim=-1), batch["label"], weight)
-        return loss.detach()
+        return loss
+
+    def _loss_and_grads(self, batch: dict):
+        """(loss, gradients in leaf order, logits, new statistics) of a train
+        step's forward and backward on a device batch; under a mesh the loss
+        and the gradients are summed over the data axis (the global batch's)
+        and the logits are this rank's rows."""
+        leaves = tree_leaves(self.params)
+        live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
+        with record_function("engine.forward"):
+            logits, new_bs, aux = _unpack(self._apply(
+                tree_unflatten(self.params, live), self.batch_stats, batch, train=True,
+                generator=self._gens.root))
+            loss = cross_entropy(logits, batch["label"], batch["weight"],
+                                 batch.get("weight_total")) + self.aux_loss_weight * aux
+        want = [i for i, p in enumerate(live) if p.requires_grad]
+        grads: list = [None] * len(live)
+        with record_function("engine.backward"):
+            for i, g in zip(want, torch.autograd.grad(loss, [live[i] for i in want], allow_unused=True)):
+                grads[i] = g
+        loss = loss.detach()
+        if self.axis is not None:
+            with torch.no_grad(), record_function("engine.all_reduce"):
+                grads, loss = reduce_gradients(grads, loss, self.axis)
+        return loss, grads, logits.detach(), new_bs
 
     def eval_step(self, batch: dict, cm: torch.Tensor):
         """Returns (loss, preds) as device tensors; updates ``cm`` in place."""
         return self._eval_core(self._to_device(batch), cm)
 
     def _eval_core(self, batch: dict, cm: torch.Tensor):
+        """Under a mesh the loss is this rank's share of the batch's."""
         with torch.no_grad():
-            logits, _, _ = _unpack(self.apply_fn(self.params, self.batch_stats, batch,
-                                                 train=False, generator=None))
-            loss = cross_entropy(logits, batch["label"], batch["weight"])
+            logits, _, _ = _unpack(self._apply(self.params, self.batch_stats, batch,
+                                               train=False, generator=None))
+            loss = cross_entropy(logits, batch["label"], batch["weight"],
+                                 batch.get("weight_total"))
             preds = logits.argmax(dim=-1)
             M.confusion_update(cm, preds, batch["label"], batch["weight"])
         return loss, preds
@@ -197,34 +264,67 @@ class Engine:
         if out["skipped_steps"]:
             print(f"  [nan-guard] skipped {out['skipped_steps']} non-finite update(s)")
 
-    @staticmethod
-    def _epoch_plan(loader) -> dict | None:
+    def _check_loader(self, loader) -> None:
+        """A mesh engine of several ranks runs only a loader of its rank's
+        input plan (the counterpart of the JAX engine's refusal of a
+        default-device plan): any other would feed every rank the whole
+        batch.  On one rank every loader's batch is the global batch."""
+        if self.axis is None or (self.axis.size == 1 and getattr(loader, "plan", None) is None):
+            return
+        plan = getattr(loader, "plan", None)
+        if plan is None or plan.D != self.axis.size or plan.position != self.axis.rank:
+            raise ValueError(
+                f"a mesh engine (rank {self.axis.rank} of {self.axis.size}) needs a loader built "
+                "for its data axis: DeviceLoader(plan=parallel.input.make_input_plan(...)) with "
+                "this rank's position")
+
+    def _epoch_plan(self, loader) -> dict | None:
+        self._check_loader(loader)
         plan_fn = getattr(loader, "epoch_plan", None)
         return plan_fn() if plan_fn is not None else None
 
+    def _sum_over_ranks(self, *arrays) -> list[np.ndarray]:
+        """Host arrays summed over the data axis in one collective; as they
+        are without a mesh."""
+        if self.axis is None:
+            return [np.asarray(a) for a in arrays]
+        from mgnns_tpu_torch.parallel.collectives import all_reduce_sum
+
+        ts = [torch.as_tensor(np.asarray(a)).to(self.axis.device) for a in arrays]
+        return [t.cpu().numpy() for t in all_reduce_sum(ts, self.axis)]
+
+    @staticmethod
+    def _batch_totals(plan: dict) -> np.ndarray:
+        """[nb] global weight sum of each batch of an epoch plan."""
+        if "weight_total" in plan:
+            return np.asarray(plan["weight_total"], np.float64)
+        return plan["weight"].sum(axis=1).astype(np.float64)
+
     def _train_epoch_plan(self, plan: dict) -> dict:
         run = self._graphs.train(plan)
-        out = M.metrics_from_confusion(run["cm"])
+        cm, = self._sum_over_ranks(run["cm"])
+        out = M.metrics_from_confusion(cm)
         self._finish_losses(out, run["losses"].astype(np.float64).tolist())
-        n, dt = int(plan["weight"].sum()), run["seconds"]
+        n, dt = int(self._batch_totals(plan).sum()), run["seconds"]
         out.update(samples_per_sec=n / dt if dt > 0 else 0.0, epoch_seconds=dt,
                    capture_seconds=run["capture_seconds"], fused=True)
         return out
 
     def _eval_epoch_plan(self, plan: dict, collect_preds: bool) -> dict:
         run = self._graphs.eval(plan)
-        out = M.metrics_from_confusion(run["cm"])
-        lv = run["losses"].astype(np.float64)
-        wv = plan["weight"].sum(axis=1).astype(np.float64)
+        cm, lv = self._sum_over_ranks(run["cm"], run["losses"])
+        out = M.metrics_from_confusion(cm)
+        lv = lv.astype(np.float64)
+        wv = self._batch_totals(plan)
         out["loss"] = float((lv * wv).sum() / max(wv.sum(), 1.0)) if lv.size else 0.0
-        n, dt = int(plan["weight"].sum()), run["seconds"]
+        n, dt = int(wv.sum()), run["seconds"]
         out.update(samples_per_sec=n / dt if dt > 0 else 0.0, epoch_seconds=dt,
-                   capture_seconds=run["capture_seconds"], confusion=run["cm"], fused=True)
+                   capture_seconds=run["capture_seconds"], confusion=cm, fused=True)
         if collect_preds:
             w = plan["weight"].reshape(-1).astype(bool)
             out["preds"] = run["preds"].reshape(-1)[w]
             out["targets"] = plan["labels"].reshape(-1)[w]
-            out["sample_index"] = plan["idx"].reshape(-1)[w]
+            out["sample_index"] = plan.get("sample_index", plan["idx"]).reshape(-1)[w]
         return out
 
     def train_epoch(self, loader: Iterable[dict], log_every: int = 0) -> dict:
@@ -243,7 +343,7 @@ class Engine:
         t_steady, n_steady = None, 0
         for i, batch in enumerate(loader):
             losses.append(self.train_step(batch, cm))  # device scalars, read once below
-            n += int(np.asarray(batch["weight"]).sum())
+            n += int(np.asarray(batch.get("weight_total", batch["weight"])).sum())
             if i == 0:
                 # the steady clock starts once step 1 has finished: it absorbs
                 # one-time costs (kernel build, library handles)
@@ -256,7 +356,7 @@ class Engine:
         loss_values = torch.stack(losses).double().cpu().tolist() if losses else []
         t_end = time.time()
         dt = t_end - t0
-        out = M.metrics_from_confusion(cm.cpu().numpy())
+        out = M.metrics_from_confusion(self._sum_over_ranks(cm.cpu().numpy())[0])
         self._finish_losses(out, loss_values)
         out["samples_per_sec"] = n / dt if dt > 0 else 0.0
         if t_steady is not None and n > n_steady and t_end > t_steady:
@@ -273,11 +373,12 @@ class Engine:
         t0 = time.time()
         n = 0
         t_steady, n_steady = None, 0
+        offset = getattr(loader, "record_offset", 0)
         for batch in loader:
             loss, preds = self.eval_step(batch, cm)
             losses.append(loss)
             w = np.asarray(batch["weight"])
-            wsums.append(float(w.sum()))
+            wsums.append(float(np.asarray(batch.get("weight_total", w)).sum()))
             n += int(wsums[-1])
             if t_steady is None:
                 float(loss)  # see train_epoch
@@ -287,10 +388,10 @@ class Engine:
                 all_preds.append(preds.cpu().numpy()[keep])
                 all_tgts.append(np.asarray(batch["label"])[keep])
                 if "sample_index" in batch:
-                    all_ids.append(np.asarray(batch["sample_index"])[keep])
+                    all_ids.append(np.asarray(batch["sample_index"])[keep] + offset)
         lv = torch.stack(losses).double().cpu().numpy() if losses else np.zeros(0)
+        cm_host, lv = self._sum_over_ranks(cm.cpu().numpy(), lv)
         dt = time.time() - t0
-        cm_host = cm.cpu().numpy()
         out = M.metrics_from_confusion(cm_host)
         # weight each batch-mean loss by its valid-sample count (the last
         # batch is usually short; an unweighted mean would over-count it)
@@ -348,7 +449,7 @@ class Engine:
                 f"acc {va['accuracy']:.4f} macroF1 {va['macro_f1']:.4f}"
             )
             history.append({"epoch": epoch, "train": tr, "val": va})
-            if metrics_path:
+            if metrics_path and self.is_writer:
                 self._append_metrics(metrics_path, epoch, tr, va)
             self.best_score = max(self.best_score, va["accuracy"])
             if self.checkpointer is not None:
@@ -383,10 +484,31 @@ class Engine:
         with open(path, "a") as f:
             f.write(json.dumps(row) + "\n")
 
-    @staticmethod
-    def _dump_results(te: dict, paths: dict, run_config: dict) -> None:
-        """Reference-style result files (``engine/...:447-507``)."""
+    def _gather_preds(self, ids, targets, preds):
+        """Every rank's (record ids, targets, predictions), concatenated in
+        rank order (``_gather_pred_blocks``, ``mgnns_tpu/engine/train.py:737-760``):
+        one packed ``int64 [3, m]`` block per rank, blocks of any width.
+        The ids are global record ids already (``DeviceLoader.record_offset``),
+        so no host offset is added here.  A collective."""
+        from mgnns_tpu_torch.parallel.collectives import gather_blocks
+
+        if ids is None:
+            ids = np.arange(len(preds))
+        block = torch.from_numpy(np.stack([np.asarray(a, np.int64)
+                                           for a in (ids, targets, preds)]).reshape(3, -1))
+        got = torch.cat(gather_blocks(block, self.axis), dim=1).numpy()
+        return got[0], got[1], got[2]
+
+    def _dump_results(self, te: dict, paths: dict, run_config: dict) -> None:
+        """Reference-style result files (``engine/...:447-507``).  Under a
+        mesh every rank calls it (the prediction gather is a collective) and
+        rank 0 writes the files, the prediction file holding every record of
+        the split."""
         ids, targets, preds = te.get("sample_index"), te.get("targets"), te.get("preds")
+        if self.axis is not None and preds is not None:
+            ids, targets, preds = self._gather_preds(ids, targets, preds)
+        if not self.is_writer:
+            return
         exp_path = paths.get("experiment")
         if exp_path:
             os.makedirs(os.path.dirname(exp_path) or ".", exist_ok=True)
@@ -461,4 +583,5 @@ class Engine:
         self.params = tree_to(params, self.device)
         self.batch_stats = tree_to(batch_stats, self.device, copy=True)
         self.opt_state = self.opt.init(self.params) if self.opt is not None else None
+        self._replicate()
         self._graphs.clear()  # they read the tensors just replaced

@@ -170,7 +170,7 @@ def mgnns_init(
 
 
 def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.Tensor, *,
-                   side: str, cfg: ModelConfig, train: bool, rngs: RngStream):
+                   side: str, cfg: ModelConfig, train: bool, rngs: RngStream, axis=None):
     """One image channel (reference ``:450-479`` object / ``:482-506``
     place).  Returns (memory_bank [B, h*w, d], channel_vec [B, 300],
     new trunk statistics)."""
@@ -182,7 +182,7 @@ def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.T
 
     def trunk_fn(img):
         return resnet.resnet_apply(trunk_p, trunk_s, img, train=bn_train, block_remat=block_remat,
-                                   dtype=cfg.cdtype)
+                                   dtype=cfg.cdtype, axis=axis)
 
     if cfg.freeze_trunks:
         # feature extraction: no trunk backward and the old statistics, as
@@ -219,7 +219,8 @@ def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.T
 
 def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
                 cfg: ModelConfig, train: bool = False,
-                generator: torch.Generator | None = None) -> tuple[torch.Tensor, dict, dict]:
+                generator: torch.Generator | None = None,
+                axis=None) -> tuple[torch.Tensor, dict, dict]:
     """Forward pass (``mgnns_tpu/models/mgnns.py:277-380``).
 
     Args:
@@ -229,9 +230,18 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
         pixels or normalized floats (fed to both trunks).
       train: dropout from ``generator`` at every site, and train-mode
         BatchNorm under ``cfg.bn_mode == "batch"``.
+      axis: the data axis (:class:`~mgnns_tpu_torch.parallel.collectives.
+        DataAxis`) when ``batch`` is this rank's rows of a global batch:
+        train-mode BatchNorm then takes the global batch's statistics, and
+        the dropout masks are the global batch's when ``generator`` comes
+        from a :class:`~mgnns_tpu_torch.nn.core.SiteGenerators` with the
+        same axis (the engine's).
     Returns:
       (logits [B, num_labels], new_batch_stats, aux); ``aux`` holds
-      ``head_diversity`` (the image->text stacks' mean) when ``cfg.is_regu``.
+      ``head_diversity`` (the image->text stacks' mean over the batch) when
+      ``cfg.is_regu``.  Under an axis of N ranks it is this rank's share of
+      the global batch's mean, the rank's mean over N: the shares sum to it
+      over the ranks, as the loss's do.
     """
     rngs = RngStream(generator)
     new_stats: dict = {}
@@ -250,10 +260,12 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
     image = normalize_image_batch(batch["image"], cfg.cdtype)
     with record_function("mgnns.object_channel"):
         obj_bank, obj_vec, new_stats["object_trunk"] = _image_channel(
-            params, batch_stats, consts, image, side="object", cfg=cfg, train=train, rngs=rngs)
+            params, batch_stats, consts, image, side="object", cfg=cfg, train=train, rngs=rngs,
+            axis=axis)
     with record_function("mgnns.place_channel"):
         plc_bank, plc_vec, new_stats["place_trunk"] = _image_channel(
-            params, batch_stats, consts, image, side="place", cfg=cfg, train=train, rngs=rngs)
+            params, batch_stats, consts, image, side="place", cfg=cfg, train=train, rngs=rngs,
+            axis=axis)
 
     head_diffs: list = []
 
@@ -279,6 +291,8 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
         text_img_place = run_stack("text_img_place_mha", text_feature, plc_bank, None, "tip")
         if head_diffs:
             aux["head_diversity"] = torch.stack(head_diffs).mean()
+            if axis is not None and axis.size > 1:
+                aux["head_diversity"] = aux["head_diversity"] / axis.size
         multi = torch.cat([text_img_object, text_img_place, img_object_text, img_place_text],
                           dim=1)                                    # [B, 1200]
         multi = linear(params["multi_linear_1"], multi)

@@ -68,10 +68,17 @@ class SiteGenerators:
     name)``.  :meth:`reseed` sets every known generator for the next step.
     A captured CUDA graph registers :meth:`generators` and reads their seeds
     and offsets at each replay, so a replay draws the masks that the same
-    step draws eagerly."""
+    step draws eagerly.
 
-    def __init__(self, device):
+    ``axis``: the data axis (:class:`~mgnns_tpu_torch.parallel.collectives.
+    DataAxis`) of a step that runs on several ranks.  :func:`dropout` then
+    draws each mask for the global batch and keeps this rank's rows, so N
+    ranks apply the masks that one device draws for the global batch, as
+    the JAX package does under SPMD."""
+
+    def __init__(self, device, axis=None):
         self.device = torch.device(device)
+        self.axis = axis
         self.root = SiteGenerator(self, (), self.device)
         self._nodes = {(): self.root}  # path -> generator, parents before children
 
@@ -211,9 +218,17 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
             train: bool) -> torch.Tensor:
     """Inverted dropout; the identity when not training, at rate 0 or
-    without a generator."""
+    without a generator.  A generator of a :class:`SiteGenerators` tree with
+    a data axis of N ranks draws the mask of the global batch ``[N * B,
+    ...]`` and keeps this rank's rows ``[rank * B, (rank + 1) * B)``."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0)
+    axis = generator.tree.axis if isinstance(generator, SiteGenerator) else None
+    if axis is not None and axis.size > 1:
+        B = x.shape[0]
+        u = torch.rand((B * axis.size, *x.shape[1:]), generator=generator, device=x.device)
+        u = u[axis.rank * B:(axis.rank + 1) * B]
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, 0.0)

@@ -38,8 +38,15 @@ the trunk's convs go through :class:`_PinnedConv2d`, an autograd function
 whose ``backward`` enters the same pin: the backward is covered whoever
 calls it (``Engine.train_step``, a user's ``torch.autograd.grad``, a
 rematerialized block).  Only the new ``fp32_precision`` API is used: mixing
-it with the legacy ``allow_tf32`` flags can raise.  bf16 convs are untouched
-by the pin.
+it with the legacy ``allow_tf32`` flags can raise.  The same pin sets
+``torch.backends.cudnn.deterministic``, for bf16 convs too, so that a train
+step is reproducible from run to run, as the JAX package's is; a CUDA graph
+captured inside it keeps the algorithms chosen then.
+
+Under a data axis of more than one rank (:mod:`mgnns_tpu_torch.parallel`)
+train-mode BatchNorm takes its statistics over the global batch
+(:func:`mgnns_tpu_torch.parallel.collectives.sync_batch_norm`); with no axis
+or an axis of one rank it is ``F.batch_norm``, as without a mesh.
 """
 
 from __future__ import annotations
@@ -60,20 +67,24 @@ EXPANSION = 4
 
 _pin_lock = threading.Lock()
 _pin_depth = 0
-_pin_saved = ""
+_pin_saved: tuple = ()
 
 
 @contextlib.contextmanager
 def ieee_float32_convs():
-    """Run cuDNN's float32 convolutions in IEEE float32 (no TF32) inside the
-    block.  The flag is process-wide: the first thread to enter saves the
-    caller's value and the last to leave restores it."""
+    """Run cuDNN's float32 convolutions in IEEE float32 (no TF32) and with
+    cuDNN's deterministic algorithms inside the block.  Without the second
+    flag cuDNN's default float32 weight gradient adds with atomics, and two
+    runs of the same train steps part from the second step on.  The flags
+    are process-wide: the first thread to enter saves the caller's values
+    and the last to leave restores them."""
     global _pin_depth, _pin_saved
     conv = torch.backends.cudnn.conv
     with _pin_lock:
         if _pin_depth == 0:
-            _pin_saved = conv.fp32_precision
+            _pin_saved = (conv.fp32_precision, torch.backends.cudnn.deterministic)
             conv.fp32_precision = "ieee"
+            torch.backends.cudnn.deterministic = True
         _pin_depth += 1
     try:
         yield
@@ -81,7 +92,7 @@ def ieee_float32_convs():
         with _pin_lock:
             _pin_depth -= 1
             if _pin_depth == 0:
-                conv.fp32_precision = _pin_saved
+                conv.fp32_precision, torch.backends.cudnn.deterministic = _pin_saved
 
 
 class _PinnedConv2d(torch.autograd.Function):
@@ -123,19 +134,27 @@ def bn_init(c: int, device) -> tuple[dict, dict]:
 
 
 def bn(p: dict, s: dict, x: torch.Tensor, *, train: bool, momentum: float = 0.1,
-       eps: float = 1e-5) -> tuple[torch.Tensor, dict]:
+       eps: float = 1e-5, axis=None) -> tuple[torch.Tensor, dict]:
     """Returns (y, new_stats), as ``nn.BatchNorm2d``: train mode normalizes
     by the biased batch variance and moves the running statistics by
     ``momentum`` towards the batch mean and the *unbiased* batch variance
     (``bn_apply``, ``mgnns_tpu/nn/resnet.py:110-138``).  The statistics are
-    float32 whatever ``x``'s dtype; ``y`` has ``x``'s dtype."""
+    float32 whatever ``x``'s dtype; ``y`` has ``x``'s dtype.  ``axis``: the
+    data axis of a step on several ranks, over whose global batch train mode
+    takes the statistics (the unbiased variance with the global count)."""
     if not train:
         return F.batch_norm(x, s["mean"], s["var"], p["scale"], p["bias"],
                             training=False, eps=eps), s
-    y = F.batch_norm(x, None, None, p["scale"], p["bias"], training=True, eps=eps)
-    with torch.no_grad():
-        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+    if axis is not None and axis.size > 1:
+        from mgnns_tpu_torch.parallel.collectives import sync_batch_norm
+
+        y, mean, var, n = sync_batch_norm(x, p["scale"], p["bias"], eps, axis)
+    else:
+        y = F.batch_norm(x, None, None, p["scale"], p["bias"], training=True, eps=eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
         n = x.numel() // x.shape[1]
+    with torch.no_grad():
         unbiased = var * n / max(n - 1, 1)
         new = {"mean": (1 - momentum) * s["mean"] + momentum * mean,
                "var": (1 - momentum) * s["var"] + momentum * unbiased}
@@ -158,15 +177,17 @@ def _bottleneck_init(g, cin, width, stride):
     return p, s
 
 
-def _bottleneck_apply(p, s, x, stride, train, dtype):
+def _bottleneck_apply(p, s, x, stride, train, dtype, axis=None):
     ns = {}
-    out, ns["bn1"] = bn(p["bn1"], s["bn1"], conv(x, p["conv1"], dtype), train=train)
+    out, ns["bn1"] = bn(p["bn1"], s["bn1"], conv(x, p["conv1"], dtype), train=train, axis=axis)
     out, ns["bn2"] = bn(p["bn2"], s["bn2"], conv(F.relu(out), p["conv2"], dtype, stride, 1),
-                        train=train)
-    out, ns["bn3"] = bn(p["bn3"], s["bn3"], conv(F.relu(out), p["conv3"], dtype), train=train)
+                        train=train, axis=axis)
+    out, ns["bn3"] = bn(p["bn3"], s["bn3"], conv(F.relu(out), p["conv3"], dtype), train=train,
+                        axis=axis)
     if "downsample_conv" in p:
         idn, ns["downsample_bn"] = bn(p["downsample_bn"], s["downsample_bn"],
-                                      conv(x, p["downsample_conv"], dtype, stride), train=train)
+                                      conv(x, p["downsample_conv"], dtype, stride), train=train,
+                                      axis=axis)
     else:
         idn = x
     return F.relu(out + idn), ns
@@ -191,16 +212,17 @@ def resnet_init(g: torch.Generator, depth: int = 50) -> tuple[dict, dict]:
 
 
 def resnet_apply(params: dict, stats: dict, x: torch.Tensor, *, train: bool = False,
-                 block_remat: bool = False,
-                 dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, dict]:
+                 block_remat: bool = False, dtype: torch.dtype = torch.float32,
+                 axis=None) -> tuple[torch.Tensor, dict]:
     """x: [B, H, W, 3] normalized images -> ([B, H/32, W/32, 2048] in
     ``dtype``, new_batch_stats).  ``block_remat`` checkpoints each bottleneck
     block (``torch.utils.checkpoint``): only block inputs stay resident for
-    the backward, which reruns one block's forward at a time."""
+    the backward, which reruns one block's forward at a time (and, under a
+    data ``axis``, its BatchNorm collectives, on every rank alike)."""
     ns: dict = {}
     out = x.permute(0, 3, 1, 2)  # NCHW shape, channels_last memory
     out, ns["bn1"] = bn(params["bn1"], stats["bn1"],
-                        conv(out, params["conv1"], dtype, 2, 3), train=train)
+                        conv(out, params["conv1"], dtype, 2, 3), train=train, axis=axis)
     out = F.max_pool2d(F.relu(out), 3, 2, 1)
     for li in range(1, 5):
         ns[f"layer{li}"] = []
@@ -210,10 +232,10 @@ def resnet_apply(params: dict, stats: dict, x: torch.Tensor, *, train: bool = Fa
                 # a block draws no random numbers, so its RNG state is not
                 # saved: torch would read the card's generator, which a CUDA
                 # graph capture forbids
-                out, nsb = checkpoint(_bottleneck_apply, pb, sb, out, stride, train, dtype,
+                out, nsb = checkpoint(_bottleneck_apply, pb, sb, out, stride, train, dtype, axis,
                                       use_reentrant=False, preserve_rng_state=False)
             else:
-                out, nsb = _bottleneck_apply(pb, sb, out, stride, train, dtype)
+                out, nsb = _bottleneck_apply(pb, sb, out, stride, train, dtype, axis)
             ns[f"layer{li}"].append(nsb)
     return out.permute(0, 2, 3, 1), ns
 

@@ -185,14 +185,16 @@ def _sample_argv(action) -> list[str]:
     return [opt, value]
 
 
-REJECTED = {"fused_segments", "use_pallas", "libtpu_init_args", "perf_preset", "mesh_data",
-            "mesh_model", "multihost"}
+REJECTED = {"fused_segments", "use_pallas", "libtpu_init_args", "perf_preset", "mesh_model"}
 
 
 def test_every_jax_flag_parses_and_is_honoured_ignored_or_rejected_with_its_counterpart():
     """Each option of the JAX CLI, at a non-default value, parses in the
     port.  The port rejects exactly the XLA-only, TPU-only and queued ones,
-    each with a message naming its counterpart or its ROADMAP.md item."""
+    each with a message naming its counterpart or its ROADMAP.md item;
+    ``--mesh_data`` and ``--multihost`` act (tests/test_torch_parallel.py),
+    and ``--mesh_data 2`` in a world of one process says how to start the
+    ranks."""
     parser = pmain.build_parser()
     port_opts = {o for a in parser._actions for o in a.option_strings}
     rejected = set()
@@ -209,7 +211,9 @@ def test_every_jax_flag_parses_and_is_honoured_ignored_or_rejected_with_its_coun
     # the defaults themselves are all accepted, and a bare --resume too
     assert pmain.unported_flags(parser.parse_args([])) == []
     assert pmain.unported_flags(parser.parse_args(["--resume"])) == []
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 6"):
+    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 6b"):
+        pmain.main(["--platform", "cpu", "--mesh_model", "2"])
+    with pytest.raises(SystemExit, match="needs a world of 2 ranks"):
         pmain.main(["--platform", "cpu", "--mesh_data", "2"])
 
 

@@ -316,7 +316,7 @@ def test_predict_cli_export_model_writes_the_artifact(text_ckpt, tmp_path, capsy
     assert meta["batch_template"]["eids"] == [[4, 10, 5], "int32"]
     with pytest.raises(SystemExit, match="--input is required"):
         ppredict.main(["--platform", "cpu", "--from_exported", str(art)])
-    with pytest.raises(SystemExit, match="item 6"):
+    with pytest.raises(SystemExit, match="item 6b"):
         ppredict.main(["--platform", "cpu", "--from_exported", str(art), "--input", "x",
                        "--mesh_data", "2"])
 
