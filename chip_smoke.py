@@ -112,7 +112,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    mgnns_tpu_torch.cli.main --multihost --mesh_data 1`` with phase 8's CLI
    flags, whose prediction file must equal phase 8's non-distributed run's
    (with two cards or more, 2 ranks over NCCL too, whose file must hold
-   every record).
+   every record);
+10. the model axis (``mgnns_tpu_torch.parallel.sharding``): two ranks
+   sharing the card over gloo (this script with ``--phase10-rank``) on a
+   ``(data 1, model 2)`` mesh, each holding its shards of the sharded
+   leaves, run phase 9a's global batches (4 train steps, the eval batches)
+   and are held to phase 9a's own 1-rank run: losses within 1e-5
+   relative, parameters and BN statistics within 9a's bound, eval
+   predictions equal, the replicated leaves bit-equal across the ranks;
+   per step the wall time, the model axis's all-reduces and bytes beside
+   the other ones, each rank's peak memory and its K1 and K2 launches;
+   the checkpoint's whole leaves of the 1-rank run's shapes and the
+   tables' padding rows zero; then a 16-record ``Predictor(mesh=...)``
+   forward of the trained weights against one device's (labels equal,
+   probabilities within 1e-5).  NCCL refuses two ranks on one card, so the
+   model axis at N > 1 runs over gloo only here.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -1855,18 +1869,19 @@ class _Split:
 
 
 def _phase9_model(spec: dict):
-    """(apply_fn, params, stats) of phase 9a's full-width fusion model on the
-    card, from the seed in ``spec``; every rank draws the same weights."""
+    """(apply_fn, params, stats, consts, cfg) of phase 9a's full-width fusion
+    model on the card, from the seed in ``spec``; every rank draws the same
+    weights."""
     cfg = ModelConfig(vocab_size=spec["vocab_size"], edges_num=spec["num_edges"])
     params, stats, consts = mgnns_init(cfg, num_edges=spec["num_edges"], seed=9, device="cuda",
                                        **spec["inputs"])
 
-    def apply_fn(p, bs, batch, *, train, generator, axis=None):
+    def apply_fn(p, bs, batch, *, train, generator, axis=None, model=None):
         logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=cfg, train=train,
-                                          generator=generator, axis=axis)
+                                          generator=generator, axis=axis, model=model)
         return logits, new_bs, aux.get("head_diversity", 0.0)
 
-    return apply_fn, params, stats
+    return apply_fn, params, stats, consts, cfg
 
 
 # Adam at lr 1e-7: its first update is the gradient's sign, so where a
@@ -1905,7 +1920,7 @@ def phase9_rank(workdir: str) -> None:
         return all_reduce(t, *a, **kw)
 
     dist.all_reduce = counted
-    apply_fn, params, stats = _phase9_model(spec)
+    apply_fn, params, stats, _, _ = _phase9_model(spec)
     splits = {k: _Split(spec[k]) for k in ("train", "val")}
     plans = {k: make_input_plan(P9_RANKS, len(v), TRAIN_BATCH) for k, v in splits.items()}
     train_ld = DeviceLoader(splits["train"], plans["train"].Bd, shuffle=True, seed=0,
@@ -1957,31 +1972,37 @@ def _phase9_spec(setup: dict, workdir: str, backend: str) -> dict:
     return spec
 
 
-def _one_rank_reference(spec: dict) -> dict:
-    """The 1-rank run of phase 9a's global batches on this card: the 2 ranks'
-    loader rows concatenated in rank order, through ``Engine.train_step``
-    and ``eval_step`` (no mesh, float32 under the package's pin)."""
+def _global_batches(arrays: dict, shuffle: bool):
+    """Phase 9a's global batches of a split: its 2 ranks' loader rows,
+    concatenated in rank order."""
     from mgnns_tpu_torch.parallel.input import make_input_plan
 
-    apply_fn, params, stats = _phase9_model(spec)
+    split = _Split(arrays)
+    lds = [DeviceLoader(split, TRAIN_BATCH // P9_RANKS, shuffle=shuffle, seed=0, device="cuda",
+                        plan=make_input_plan(P9_RANKS, len(split), TRAIN_BATCH, position=p,
+                                             process_index=0, process_count=1))
+           for p in range(P9_RANKS)]
+    for parts in zip(*lds):
+        batch = {}
+        for k in parts[0]:
+            if k == "weight_total":
+                continue
+            vs = [b[k] for b in parts]
+            batch[k] = (torch.cat(vs) if isinstance(vs[0], torch.Tensor)
+                        else np.concatenate([np.atleast_1d(v) for v in vs]))
+        yield batch
+
+
+def _one_rank_reference(spec: dict) -> dict:
+    """The 1-rank run of phase 9a's global batches on this card
+    (:func:`_global_batches`), through ``Engine.train_step`` and
+    ``eval_step`` (no mesh, float32 under the package's pin)."""
+    apply_fn, params, stats, _, _ = _phase9_model(spec)
     eng = Engine(apply_fn, params, stats, **P9_ENGINE)
     out: dict = {"losses": [], "preds": {}}
     for name, shuffle in (("train", True), ("val", False)):
-        split = _Split(spec[name])
-        lds = [DeviceLoader(split, TRAIN_BATCH // P9_RANKS, shuffle=shuffle, seed=0,
-                            device="cuda", plan=make_input_plan(P9_RANKS, len(split), TRAIN_BATCH,
-                                                                position=p, process_index=0,
-                                                                process_count=1))
-               for p in range(P9_RANKS)]
         cm = confusion_init(len(LABELS), "cuda")
-        for parts in zip(*lds):
-            batch = {}
-            for k in parts[0]:
-                if k == "weight_total":
-                    continue
-                vs = [b[k] for b in parts]
-                batch[k] = (torch.cat(vs) if isinstance(vs[0], torch.Tensor)
-                            else np.concatenate([np.atleast_1d(v) for v in vs]))
+        for batch in _global_batches(spec[name], shuffle):
             if name == "train":
                 out["losses"].append(float(eng.train_step(batch, cm)))
             else:
@@ -1992,6 +2013,7 @@ def _one_rank_reference(spec: dict) -> dict:
     out["state"] = tree_leaves(eng.params) + tree_leaves(eng.batch_stats)
     out["paths"] = [f"params{p}" for p in tree_paths(eng.params)] + \
         [f"stats{p}" for p in tree_paths(eng.batch_stats)]
+    out["trees"] = (eng.params, eng.batch_stats)
     return out
 
 
@@ -2009,16 +2031,16 @@ def _state_errors(got: list, want: list, paths: list) -> tuple[float, list]:
     return max(e / max(s, floor) for e, s in zip(errs, scales)), worst
 
 
-def _spawn_ranks(workdir: str, n: int) -> None:
-    """Start ``n`` ranks of this script as torchrun would, wait for all, and
-    fail if any fails or they outlast 600 s."""
+def _spawn_ranks(workdir: str, n: int, flag: str = "--phase9-rank") -> None:
+    """Start ``n`` ranks of this script (``flag``) as torchrun would, wait for
+    all, and fail if any fails or they outlast 600 s."""
     port = _free_port()
     procs = []
     for rank in range(n):
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
                    WORLD_SIZE=str(n), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n))
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                       "--phase9-rank", workdir], env=env,
+                                       flag, workdir], env=env,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = []
     try:
@@ -2032,17 +2054,19 @@ def _spawn_ranks(workdir: str, n: int) -> None:
     for rank, (p, text) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
             log(text[-6000:])
-            raise SystemExit(f"phase 9a: rank {rank} exited with {p.returncode}")
+            raise SystemExit(f"{flag}: rank {rank} exited with {p.returncode}")
 
 
-def phase9a(setup: dict) -> None:
+def phase9a(setup: dict) -> dict:
     """Two ranks sharing the card over gloo (NCCL refuses two ranks on one
     device) against the 1-rank run of their global batches; with two cards
-    or more, two ranks over NCCL too."""
+    or more, two ranks over NCCL too.  Returns what phase 10 reuses: the
+    gloo run's spec, the 1-rank run and its all-reduce counts."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()  # the ranks share this card with this process
     runs = [("gloo", "2 ranks on cuda:0 over gloo")]
+    reuse: dict = {}
     if torch.cuda.device_count() >= 2:
         runs.append(("nccl", "2 ranks on cuda:0 and cuda:1 over NCCL"))
     else:
@@ -2060,6 +2084,8 @@ def phase9a(setup: dict) -> None:
                  for r in range(P9_RANKS)]
         if ref is None:
             ref = _one_rank_reference(spec)
+        if backend == "gloo":
+            reuse.update(spec=spec, ref=ref, sent=ranks[0]["sent"], steps=len(ranks[0]["losses"]))
         got = ranks[0]
         preds = {k: v for rk in ranks for k, v in rk["preds"].items()}
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
@@ -2092,6 +2118,211 @@ def phase9a(setup: dict) -> None:
             raise SystemExit(f"phase 9a ({label}): 2 ranks disagree with 1 rank of the global "
                              "batch")
     log(f"phase 9a: {time.perf_counter() - t_phase} s; {card_line()}")
+    return reuse
+
+
+# ----------------------------------------------------------------- phase 10
+
+P10_MODEL = 2
+P10_SERVE = 16  # records of the served request
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def phase10_rank(workdir: str) -> None:
+    """One rank of phase 10, started by :func:`phase10` with torchrun's
+    environment: phase 9a's 4 train steps and eval batches (its global
+    batches, :func:`_global_batches`) on a ``(data 1, model 2)`` mesh over
+    gloo, each rank on the whole global batch of 16 with its shards of the
+    parameters; a checkpoint; then a 16-record ``Predictor(mesh=...)``
+    forward of the trained weights.  The results go to
+    ``<workdir>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from mgnns_tpu_torch.graphs.pmi import PmiGraph
+    from mgnns_tpu_torch.parallel import multihost
+    from mgnns_tpu_torch.parallel.mesh import create_mesh
+    from mgnns_tpu_torch.parallel.sharding import mgnns_param_rules
+
+    spec = torch.load(os.path.join(workdir, "phase10.pt"), weights_only=False)
+    rank = int(os.environ["RANK"])
+    multihost.initialize(backend="gloo", device="cuda:0")
+    mesh = create_mesh(1, P10_MODEL, device="cuda")
+    model_group = mesh.get_group("model")
+    # calls and bytes of every all-reduce, by axis
+    sent = {"model": [0, 0], "other": [0, 0]}
+    all_reduce = dist.all_reduce
+
+    def counted(t, *a, **kw):
+        key = "model" if kw.get("group") is model_group else "other"
+        sent[key][0] += 1
+        sent[key][1] += t.numel() * t.element_size()
+        return all_reduce(t, *a, **kw)
+
+    dist.all_reduce = counted
+    apply_fn, params, stats, consts, cfg = _phase9_model(spec)
+    eng = Engine(apply_fn, params, stats, mesh=mesh, param_sharding_rules=mgnns_param_rules(),
+                 heads=cfg.n_head, checkpoint_dir=os.path.join(workdir, "ckpt"), **P9_ENGINE)
+    del params
+    # phase 9a's global batches, each step timed and its all-reduces and
+    # launches counted (the device synchronized on each side)
+    steps, losses = [], []
+    cm = confusion_init(len(LABELS), "cuda")
+    for batch in _global_batches(spec["train"], shuffle=True):
+        torch.cuda.synchronize()
+        before = [list(v) for v in sent.values()]
+        edge_max.launches = edge_max.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_step(batch, cm)))
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "model_calls": sent["model"][0] - before[0][0],
+                      "model_bytes": sent["model"][1] - before[0][1],
+                      "other_calls": sent["other"][0] - before[1][0],
+                      "other_bytes": sent["other"][1] - before[1][1],
+                      "k1": edge_max.launches, "k2": edge_max.bwd_launches,
+                      "peak_bytes": torch.cuda.max_memory_allocated()})
+    out = {"rank": rank, "losses": losses, "steps": steps,
+           "sharded": sorted(p for p, pl in eng.placements.items() if pl.dim is not None)}
+    edge_max.launches = 0
+    calls0 = sent["model"][0]
+    preds: dict = {}
+    ecm = confusion_init(len(LABELS), "cuda")
+    for batch in _global_batches(spec["val"], shuffle=False):
+        _, p = eng.eval_step(batch, ecm)
+        w = batch["weight"].astype(bool)
+        preds.update(zip(batch["sample_index"][w].tolist(), p.cpu().numpy()[w].tolist()))
+    out.update(k1_eval=edge_max.launches, eval_model_calls=sent["model"][0] - calls0,
+               preds=preds)
+    # leaves the model axis replicates: their bits; the padding rows of the
+    # gather tables (the last model rank's) zero in the parameters and moments
+    paths = eng._paths()
+    leaves = tree_leaves(eng.params)
+    mu = dict(zip(eng.opt.trained, eng.opt_state["mu"]))
+    nu = dict(zip(eng.opt.trained, eng.opt_state["nu"]))
+    out["replicated"] = {p: _digest(t) for p, t in zip(paths, leaves)
+                         if eng.placements[p].dim is None}
+    out["replicated"].update({f"mu/{paths[i]}": _digest(t) for i, t in mu.items()
+                              if eng.placements[paths[i]].dim is None})
+    pads = {}
+    for i, p in enumerate(paths):
+        pl = eng.placements[p]
+        if pl.dim == 0 and leaves[i].shape[0] * P10_MODEL > pl.shape[0]:
+            n = leaves[i].shape[0]
+            rows = torch.arange(rank * n, (rank + 1) * n, device=leaves[i].device) >= pl.shape[0]
+            pads[p] = (int(rows.sum()), all(bool((t[rows] == 0).all())
+                                            for t in (leaves[i], mu.get(i), nu.get(i))
+                                            if t is not None))
+    out["pads"] = pads
+    t0 = time.perf_counter()
+    eng.save()
+    out["save_s"] = time.perf_counter() - t0
+    out["step"] = eng.step
+    whole = eng.full_params()
+    if rank == 0:
+        out["state"] = [t.detach().cpu() for t in tree_leaves(whole) + tree_leaves(eng.batch_stats)]
+    # serving: the trained weights on the mesh, every rank the same records
+    g = spec["graph"]
+    pred = Predictor(vocab=spec["vocab"], graph=PmiGraph(g["vocab_size"], g["keys"], g["pmi"]),
+                     graph_cfg=TextGraphConfig(), label_map=LABELS, params=whole,
+                     batch_stats=eng.batch_stats, consts=consts, cfg=cfg,
+                     image_backend="synthetic", max_batch=TRAIN_BATCH, device="cuda", mesh=mesh)
+    del whole
+    edge_max.launches = 0
+    calls0 = sent["model"][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = pred.predict(spec["serve"])
+    out.update(serve_ms=(time.perf_counter() - t0) * 1e3, served=served,
+               k1_serve=edge_max.launches, serve_model_calls=sent["model"][0] - calls0,
+               buckets=pred.batch_buckets)
+    pred.close()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase10(setup: dict, p9: dict) -> None:
+    """The model axis: 2 gloo ranks sharing the card on a ``(data 1, model
+    2)`` mesh run phase 9a's spec, held to phase 9a's own 1-rank run of the
+    same global batches, and serve its trained weights."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec, ref = p9["spec"], p9["ref"]
+    vocab, graph, texts = setup["vocab"], setup["graph"], setup["texts"]
+    records = _records(texts, P10_SERVE, 900, np.random.default_rng(10))
+    workdir = tempfile.mkdtemp(prefix="mgnns_p10_")
+    torch.save(dict(spec, vocab=vocab, serve=records,
+                    graph={"vocab_size": graph.vocab_size, "keys": graph.keys,
+                           "pmi": graph.pmi}), os.path.join(workdir, "phase10.pt"))
+    t0 = time.perf_counter()
+    _spawn_ranks(workdir, P10_MODEL, "--phase10-rank")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+             for r in range(P10_MODEL)]
+    got = ranks[0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+    state_err, worst = _state_errors(got["state"], ref["state"], ref["paths"])
+    eval_equal = all(rk["preds"] == ref["preds"] for rk in ranks)
+    replicated_equal = ranks[0]["replicated"] == ranks[1]["replicated"]
+    # the checkpoint: whole leaves of the 1-rank run's shapes
+    raw = torch.load(os.path.join(workdir, "ckpt", f"step_{got['step']}.pt"), map_location="cpu",
+                     weights_only=False)
+    ckpt_shapes = [tuple(t.shape) for t in tree_leaves(raw["params"])]
+    ref_params, ref_stats = ref["trees"]
+    ckpt_ok = ckpt_shapes == [tuple(t.shape) for t in tree_leaves(ref_params)]
+    pads = {p: v for rk in ranks for p, v in rk["pads"].items()}
+    del raw
+    # the same request served by one device from the 1-rank run's weights
+    _, _, _, consts, cfg = _phase9_model(spec)
+    one = Predictor(vocab=vocab, graph=graph, graph_cfg=TextGraphConfig(), label_map=LABELS,
+                    params=ref_params, batch_stats=ref_stats, consts=consts, cfg=cfg,
+                    image_backend="synthetic", max_batch=TRAIN_BATCH, device="cuda")
+    want = one.predict(records)
+    one.close()
+    labels_equal = all([g["label"] for g in rk["served"]] == [w["label"] for w in want]
+                       for rk in ranks)
+    prob_err = max(abs(g["probs"][k] - w["probs"][k]) for rk in ranks
+                   for g, w in zip(rk["served"], want) for k in w["probs"])
+    n9 = p9["steps"]
+    for rk in ranks:
+        for i, st in enumerate(rk["steps"]):
+            log(f"phase 10 (2 ranks on cuda:0 over gloo, mesh data 1 x model 2): rank "
+                f"{rk['rank']} step {i}: {st['ms']} ms of wall; model axis {st['model_calls']} "
+                f"all-reduces, {st['model_bytes']} bytes; other all-reduces (the data axis, "
+                f"a group of one rank) {st['other_calls']}, {st['other_bytes']} bytes (phase "
+                f"9a, data 2: {p9['sent']['calls'] / n9} all-reduces, {p9['sent']['bytes'] / n9} "
+                f"bytes a step); peak device memory {st['peak_bytes']} bytes; K1, K2 launches "
+                f"{st['k1']}, {st['k2']}; {card_line()}")
+        log(f"phase 10: rank {rk['rank']}: step losses {rk['losses']}; eval: K1 {rk['k1_eval']} launches in 2 forwards, {rk['eval_model_calls']} model-axis "
+            f"all-reduces; checkpoint save {rk['save_s']} s; served {P10_SERVE} records in "
+            f"{rk['serve_ms']} ms (buckets {rk['buckets']}), K1 {rk['k1_serve']} launches, "
+            f"{rk['serve_model_calls']} model-axis all-reduces; {len(rk['sharded'])} sharded "
+            f"leaves; padding rows (rows, zero) {rk['pads']}")
+    log(f"phase 10: against phase 9a's 1-rank run of the global batches: losses {ref['losses']}, "
+        f"max relative loss difference {loss_err}; parameters and BN statistics within "
+        f"{state_err} of each leaf's scale (floored at 1e-3 of the largest leaf's; worst leaves "
+        f"by their own scale (error/scale, error, scale, leaf): {worst}); eval predictions equal "
+        f"{eval_equal}; served labels equal {labels_equal}, max probability difference "
+        f"{prob_err}; replicated leaves bit-equal across the ranks {replicated_equal}; "
+        f"checkpoint leaves of the 1-rank shapes {ckpt_ok}; {wall} s for the ranks")
+    steps = len(got["losses"])
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise SystemExit("phase 10: the ranks' losses differ")
+    if not all([(st["k1"], st["k2"]) for st in rk["steps"]] == [(1, 1)] * steps
+               and rk["k1_eval"] == 2 and rk["k1_serve"] == 1 for rk in ranks):
+        raise SystemExit("phase 10: a rank did not launch K1 once per forward and K2 once per "
+                         "train step")
+    if not (loss_err <= 1e-5 and state_err <= 1e-4 and eval_equal and labels_equal
+            and prob_err <= 1e-5 and replicated_equal and ckpt_ok and pads
+            and all(zero for _, zero in pads.values())):
+        raise SystemExit("phase 10: the model axis disagrees with 1 rank")
+    log(f"phase 10: {time.perf_counter() - t_phase} s; {card_line()}")
 
 
 def phase9c(root: str) -> None:
@@ -2186,8 +2417,9 @@ def main() -> int:
     phase6(root)
     phase7(root, k1)
     phase8(setup, root)
-    phase9a(setup)
+    p9 = phase9a(setup)
     phase9c(root)
+    phase10(setup, p9)
 
     log(f"total {time.perf_counter() - t_start} s")
     log(card_line())
@@ -2200,14 +2432,17 @@ def main() -> int:
                    "cli.main --device_text --device_images",
                    "Engine(mesh=...) on 2 ranks over gloo, each rank's forward",
                    "Engine(mesh=...) on 1 rank over NCCL, captured train and eval steps",
-                   "torchrun cli.main --multihost --mesh_data 1"]
+                   "torchrun cli.main --multihost --mesh_data 1",
+                   "Engine(mesh=...) on a (1, 2) model axis over gloo, each rank's forward",
+                   "Predictor(mesh=...) on a (1, 2) model axis"]
     k2["paths"] = ["engine.train.Engine.train_step", "cli.main (text-only, fusion)",
                    "cli.main --init_from_reference",
                    "engine.graphs (captured train steps over device tables)",
                    "cli.main --device_text --device_images",
                    "Engine(mesh=...) on 2 ranks over gloo, each rank's backward",
                    "Engine(mesh=...) on 1 rank over NCCL, captured train steps",
-                   "torchrun cli.main --multihost --mesh_data 1"]
+                   "torchrun cli.main --multihost --mesh_data 1",
+                   "Engine(mesh=...) on a (1, 2) model axis over gloo, each rank's backward"]
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -2217,5 +2452,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase9-rank"]:
         phase9_rank(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase10-rank"]:
+        phase10_rank(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

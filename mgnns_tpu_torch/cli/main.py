@@ -27,17 +27,23 @@ a card) or ``cpu``.
 batch ``-b`` splits over the ranks (each runs ``b / N`` rows of it), each
 split gets an input plan per rank (:mod:`mgnns_tpu_torch.parallel.input`),
 and rank 0 writes the checkpoints, the preprocessing and the result files.
-The world must be N ranks; the backend follows ``--platform`` (NCCL on
-``cuda``, gloo on ``cpu``).  ``--multihost`` also joins the process group,
-and on several ``torchrun`` nodes each node reads only its contiguous slice
-of every split.  ``--mesh_model`` above 1 is ``ROADMAP.md`` queue 1 item 6b.
+``--mesh_model M`` also splits the parameters over M ranks by
+:mod:`mgnns_tpu_torch.parallel.sharding`'s rules (the text-only model's for
+``--text_only``), as the JAX CLI's ``--mesh_model`` does; the world must
+then be ``N * M`` ranks, the ranks of one data position consecutive.  The
+backend follows ``--platform`` (NCCL on ``cuda``, gloo on ``cpu``).
+``--multihost`` also joins the process group, and on several ``torchrun``
+nodes each node reads only its contiguous slice of every split.
 
-Examples (text-only slice on the CPU; two ranks on two cards)::
+Examples (text-only slice on the CPU; two ranks on two cards; two data
+positions of two model ranks on four cards)::
 
     python -m mgnns_tpu_torch.cli.main --platform cpu --data_root_path data \\
         --pmi_phase val --train_phase val --text_only --epochs 2 -b 64
     python -m torch.distributed.run --nproc_per_node 2 -m mgnns_tpu_torch.cli.main \\
         --mesh_data 2 --data_root_path data --epochs 2 -b 32
+    python -m torch.distributed.run --nproc_per_node 4 -m mgnns_tpu_torch.cli.main \\
+        --mesh_data 2 --mesh_model 2 --data_root_path data --epochs 2 -b 32
 """
 
 from __future__ import annotations
@@ -53,8 +59,6 @@ import torch
 _FUSED_SEGMENTS = ("splits the JAX package's whole-epoch XLA program when it does not compile; "
                    "its counterpart in the port is one captured train step replayed once per "
                    "batch (mgnns_tpu_torch/engine/graphs.py), which has no epoch program to split")
-_MODEL_AXIS = ("the mesh's model axis (sharded tables and projections) waits for ROADMAP.md "
-               "queue 1 item 6b")
 _TPU_COMPILER = ("a TPU compiler flag; its counterpart in the port is the nvcc build of the "
                  "kernels (mgnns_tpu_torch/kernels/build.py), which takes no flags")
 
@@ -157,7 +161,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image_root", type=str, default=".")
     p.add_argument("--mesh_data", type=int, default=1,
                    help="data-parallel ranks: run under torchrun with this many processes")
-    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6b")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="model-parallel ranks per data position (the sharding rules of "
+                        "mgnns_tpu_torch/parallel/sharding.py); run under torchrun with "
+                        "--mesh_data x --mesh_model processes")
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's process group; on several nodes each node loads "
                         "its own record slice (see mgnns_tpu_torch/parallel/multihost.py)")
@@ -206,7 +213,6 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
          "mgnns_tpu_torch/kernels/edge_max.py, whose plain versions run only on CPU tensors"),
         ("--libtpu_init_args", args.libtpu_init_args is not None, _TPU_COMPILER),
         ("--perf_preset", args.perf_preset, _TPU_COMPILER),
-        ("--mesh_model", args.mesh_model != 1, _MODEL_AXIS),
     )
     return [f"{flag}: {why}" for flag, on, why in checks if on]
 
@@ -232,14 +238,15 @@ def main(argv=None) -> dict:
 
     owned = not dist.is_initialized()
     distributed = False
-    if args.multihost or args.mesh_data > 1:
+    ranks = args.mesh_data * args.mesh_model
+    if args.multihost or ranks > 1:
         distributed = multihost.initialize(device=args.platform)
     world = dist.get_world_size() if distributed else 1
-    if args.mesh_data != world:
+    if ranks != world:
         raise SystemExit(
-            f"--mesh_data {args.mesh_data} needs a world of {args.mesh_data} ranks, one per "
-            f"card, and this one has {world}: start it with python -m torch.distributed.run "
-            f"--nproc_per_node {args.mesh_data} -m mgnns_tpu_torch.cli.main ...")
+            f"--mesh_data {args.mesh_data} x --mesh_model {args.mesh_model} needs a world of "
+            f"{ranks} ranks, one per card, and this one has {world}: start it with python -m "
+            f"torch.distributed.run --nproc_per_node {ranks} -m mgnns_tpu_torch.cli.main ...")
     try:
         return _main(args, distributed)
     finally:
@@ -257,6 +264,7 @@ def _main(args: argparse.Namespace, distributed: bool) -> dict:
         import_reference_state_dict, load_torch_state_dict,
     )
     from mgnns_tpu_torch.parallel import multihost
+    from mgnns_tpu_torch.parallel.sharding import mgnns_param_rules, text_model_param_rules
     from mgnns_tpu_torch.serving import save_preproc
     from mgnns_tpu_torch.utils import resolve_device
 
@@ -265,7 +273,7 @@ def _main(args: argparse.Namespace, distributed: bool) -> dict:
     if distributed:
         from mgnns_tpu_torch.parallel.mesh import create_mesh
 
-        mesh = create_mesh(data=args.mesh_data, device=device)
+        mesh = create_mesh(data=args.mesh_data, model=args.mesh_model, device=device)
     rank0 = not distributed or torch.distributed.get_rank() == 0
     # several hosts: each reads its contiguous slice of every split
     hosts = multihost.process_count() if args.multihost else 1
@@ -356,10 +364,10 @@ def _main(args: argparse.Namespace, distributed: bool) -> dict:
                                  device=device)
         batch_stats: dict = {}
 
-        def apply_fn(p, bs, batch, *, train, generator, axis=None):
+        def apply_fn(p, bs, batch, *, train, generator, axis=None, model=None):
             # no BatchNorm: the data axis reaches dropout through the generator
             return text_model_apply(p, batch, ngram=graph_cfg.ngram, dropout_rate=args.dropout,
-                                    train=train, generator=generator), bs
+                                    train=train, generator=generator, model=model), bs
     else:
         from mgnns_tpu_torch.models.mgnns import mgnns_apply, mgnns_init
         from mgnns_tpu_torch.nn.resnet import import_torch_state_dict
@@ -396,9 +404,9 @@ def _main(args: argparse.Namespace, distributed: bool) -> dict:
                     import_torch_state_dict(sd, depth)
                 print(f"loaded {side} trunk (resnet{depth}) from {ckpt_path}")
 
-        def apply_fn(p, bs, batch, *, train, generator, axis=None):
+        def apply_fn(p, bs, batch, *, train, generator, axis=None, model=None):
             logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=model_cfg, train=train,
-                                              generator=generator, axis=axis)
+                                              generator=generator, axis=axis, model=model)
             return logits, new_bs, aux.get("head_diversity", 0.0)
 
     # on several ranks every split gets this rank's input plan per batch size;
@@ -434,6 +442,9 @@ def _main(args: argparse.Namespace, distributed: bool) -> dict:
         freeze_trunks=args.freeze_trunks and not args.text_only,
         aux_loss_weight=args.regu_weight, seed=args.seed, checkpoint_dir=ckpt_dir,
         max_to_keep=args.max_to_keep, device=device, mesh=mesh,
+        param_sharding_rules=(text_model_param_rules() if args.text_only
+                              else mgnns_param_rules()),
+        heads=args.n_head,
     )
 
     # the greedy device-memory budget of the JAX CLI: pixel tables go to the

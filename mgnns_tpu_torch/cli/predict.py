@@ -21,8 +21,15 @@ Examples::
     python -m mgnns_tpu_torch.cli.predict --from_exported artifact \\
         --input posts.jsonl
 
-Not taken yet, rejected by name: ``--mesh_data`` / ``--mesh_model`` above 1
-(the Predictor's mesh path, ``ROADMAP.md`` queue 1 item 6b).
+``--mesh_data D --mesh_model M`` serves on ``D * M`` ranks started by
+``torchrun`` (``Predictor(mesh=...)``): every rank reads the input and runs
+each chunk, the bucket splits over the data positions, the parameters over
+the model ranks, and rank 0 writes the output.  A mesh needs the live model,
+so it is refused with ``--from_exported`` and ``--export_model``::
+
+    python -m torch.distributed.run --nproc_per_node 2 -m mgnns_tpu_torch.cli.predict \\
+        --mesh_model 2 --data_root_path data --checkpoint checkpoint/mgnns_tpu \\
+        --input posts.jsonl --output preds.jsonl
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ import argparse
 import json
 import sys
 
-MULTI_DEVICE = ("multi-device serving (the Predictor's mesh path) waits for ROADMAP.md queue 1 "
-                "item 6b")
+# the JAX CLI's reason (mgnns_tpu/cli/predict.py:51-59), in this package's terms
+LIVE_MODEL = ("--mesh_data/--mesh_model need the live model; the exported torch.export "
+              "artifact is a single-device program")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,28 +64,51 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--step", type=int, default=None, help="checkpoint step (default latest)")
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                    help="device to run on; 'cuda' raises when no card is present")
-    p.add_argument("--mesh_data", type=int, default=1, help="rejected above 1: item 6b")
-    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6b")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="split each batch over this many data positions (under torchrun)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="split the gather tables and wide projections over this many ranks "
+                        "(training's model-parallel rules; under torchrun)")
     return p
 
 
-def unported_flags(args: argparse.Namespace) -> list[str]:
-    """One message for each flag set in ``args`` that the port rejects,
-    naming the ``ROADMAP.md`` item that brings it."""
-    checks = (
-        ("--mesh_data", args.mesh_data != 1, MULTI_DEVICE),
-        ("--mesh_model", args.mesh_model != 1, MULTI_DEVICE),
-    )
-    return [f"{flag}: {why}" for flag, on, why in checks if on]
+def make_mesh(args: argparse.Namespace):
+    """The ``(mesh_data, mesh_model)`` mesh over the ranks torchrun started,
+    or None on one device; whether this process joined the group."""
+    if args.mesh_data * args.mesh_model <= 1:
+        return None, False
+    if args.from_exported or args.export_model:
+        raise SystemExit(LIVE_MODEL)
+    import torch.distributed as dist
+
+    from mgnns_tpu_torch.parallel import multihost
+    from mgnns_tpu_torch.parallel.mesh import create_mesh
+
+    owned = not dist.is_initialized()
+    ranks = args.mesh_data * args.mesh_model
+    if not multihost.initialize(device=args.platform) or dist.get_world_size() != ranks:
+        raise SystemExit(f"--mesh_data {args.mesh_data} x --mesh_model {args.mesh_model} needs "
+                         f"a world of {ranks} ranks: start it with python -m "
+                         f"torch.distributed.run --nproc_per_node {ranks} -m "
+                         "mgnns_tpu_torch.cli.predict ...")
+    return create_mesh(args.mesh_data, args.mesh_model, device=args.platform), owned
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    rejected = unported_flags(args)
-    if rejected:
-        raise SystemExit("not supported by the PyTorch port:\n  " + "\n  ".join(rejected))
     if not (args.input or args.export_model):
         raise SystemExit("--input is required (or pass --export_model)")
+    mesh, owned = make_mesh(args)
+    try:
+        _predict(args, mesh)
+    finally:
+        if owned:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _predict(args: argparse.Namespace, mesh) -> None:
     if args.from_exported:
         from mgnns_tpu_torch.export import load_exported
 
@@ -93,7 +124,7 @@ def main(argv=None) -> None:
             args.data_root_path, args.checkpoint, text_only=args.text_only,
             pmi_phase=args.pmi_phase, image_backend=args.image_backend,
             image_root=args.image_root, max_batch=args.max_batch, step=args.step,
-            device=args.platform)
+            device=args.platform, mesh=mesh)
     try:
         if args.export_model:
             from mgnns_tpu_torch.export import export_predictor
@@ -107,6 +138,11 @@ def main(argv=None) -> None:
         results = predictor.predict(records)
     finally:
         predictor.close()
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            return  # every rank holds the whole answer; rank 0 writes it
     out = open(args.output, "w") if args.output else sys.stdout
     try:
         for rec, res in zip(records, results):

@@ -22,6 +22,11 @@ without a card) or ``cpu``.
 ``--from_exported <dir>`` serves an artifact of ``cli.predict
 --export_model`` (:mod:`mgnns_tpu_torch.export`) in place of a checkpoint.
 
+Not taken yet, rejected by name: ``--mesh_data`` / ``--mesh_model`` above 1.
+``Predictor(mesh=...)`` serves on a mesh (``cli.predict`` takes both flags),
+but an HTTP front end on several ranks needs rank 0 to broadcast each chunk
+to the follower ranks (``ROADMAP.md`` queue 1 item 6c).
+
 Usage::
 
     python -m mgnns_tpu_torch.cli.serve --data_root_path data \\
@@ -35,7 +40,19 @@ import argparse
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from mgnns_tpu_torch.cli.predict import unported_flags
+MESH_FRONTEND = ("serving HTTP on a mesh needs rank 0's front end to broadcast each chunk to "
+                 "the follower ranks: ROADMAP.md queue 1 item 6c (cli.predict takes "
+                 "--mesh_data/--mesh_model under torchrun)")
+
+
+def unported_flags(args: argparse.Namespace) -> list[str]:
+    """One message for each flag set in ``args`` that the port rejects,
+    naming the ``ROADMAP.md`` item that brings it."""
+    checks = (
+        ("--mesh_data", args.mesh_data != 1, MESH_FRONTEND),
+        ("--mesh_model", args.mesh_model != 1, MESH_FRONTEND),
+    )
+    return [f"{flag}: {why}" for flag, on, why in checks if on]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,8 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--platform", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="device to run on; 'cuda' raises when no card is present")
-    p.add_argument("--mesh_data", type=int, default=1, help="rejected above 1: item 6b")
-    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6b")
+    p.add_argument("--mesh_data", type=int, default=1, help="rejected above 1: item 6c")
+    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6c")
     return p
 
 

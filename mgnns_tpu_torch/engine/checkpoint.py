@@ -10,9 +10,11 @@ reads no Orbax checkpoint: weights cross from the reference or the JAX
 package as reference-named ``state_dict``s in ``.pth[.tar]`` files, through
 :mod:`mgnns_tpu_torch.models.import_reference`.
 
-On a data axis of several ranks (``Checkpointer(axis=...)``, which every
-rank constructs) rank 0 writes and prunes, a barrier follows each save,
-and every rank restores.  The directory must be one path that every rank
+On a mesh of several ranks (``Checkpointer(axis=...)``, which every rank
+constructs; the engine passes the whole world) rank 0 writes and prunes, a
+barrier follows each save, and every rank restores.  The engine hands it
+whole, unpadded leaves on a model axis too, so what is saved does not
+depend on the mesh.  The directory must be one path that every rank
 sees: the constructor probes it (the JAX package's
 ``_verify_shared_directory``, ``mgnns_tpu/engine/checkpoint.py:32-90``)
 and raises on every rank when it is not, where per-rank directories would

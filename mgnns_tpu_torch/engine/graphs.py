@@ -43,6 +43,8 @@ through a device step counter, which it increments.
   cannot be captured, so under gloo the plan path runs the same step
   eagerly on the card, as on the CPU.  A plan's ``weight_total`` (the
   global weight sum of each batch) is a static buffer beside ``weight``.
+  A model axis's collectives (``parallel/collectives.py``) are plain
+  all-reduces in the step's forward and backward, captured the same way.
 
 The JAX engine's segment ladder and memory guard, which split an epoch
 program that XLA could not compile, have no counterpart: one captured step

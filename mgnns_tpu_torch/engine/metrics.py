@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 
-def confusion_init(num_classes: int, device="cpu") -> torch.Tensor:
+def confusion_init(num_classes: int, device) -> torch.Tensor:
+    """A zero [C, C] int64 confusion matrix on ``device``."""
     return torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
 
 

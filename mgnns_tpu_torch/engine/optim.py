@@ -21,7 +21,12 @@ applies the chain once, as ``optax.MultiSteps``.
 On a data axis of several ranks (:mod:`mgnns_tpu_torch.parallel`) each rank
 holds its share of the gradient; :func:`reduce_gradients` sums the shares,
 and the loss's, in one flat buffer before the chain, so that the clip, the
-nan-guard's flag and the step count are the same on every rank.  The arithmetic runs on
+nan-guard's flag and the step count are the same on every rank.  On a model
+axis a leaf may be this rank's shard (:meth:`Optimizer.set_model_axis`): the
+clip's norm then sums the squares of the sharded leaves over the model axis
+and counts each replicated leaf once, and the moments of a shard are its
+own.  A gather table's zero padding rows get zero gradients, so their
+moments, their weight decay and their updates stay zero.  The arithmetic runs on
 ``torch._foreach_*`` lists, so a step costs a few multi-tensor launches and
 no host sync.
 
@@ -142,6 +147,12 @@ class Optimizer:
         self.accumulation_steps = accumulation_steps
         self.algo = algo
         self._consts: dict = {}
+        self.model = None
+
+    def set_model_axis(self, axis, sharded: list[bool]) -> None:
+        """Leaves ``i`` with ``sharded[i]`` are this rank's shards on the
+        model ``axis`` (None: no model axis)."""
+        self.model = None if axis is None else (axis, list(sharded))
 
     def label(self, params: dict) -> None:
         """The group factor of each leaf of ``params``, in leaf order; a tree
@@ -232,6 +243,21 @@ class Optimizer:
             return
         self._chain(params, grads, state, ok)
 
+    def _model_axis_norm(self, grads) -> torch.Tensor:
+        """The global norm of the whole gradient from this rank's shards:
+        the squares of the sharded leaves summed over the model axis, each
+        replicated leaf's counted once."""
+        from mgnns_tpu_torch.parallel.collectives import model_sum
+
+        axis, sharded = self.model
+        ref = next(g for g in grads if g is not None)
+        sq = []
+        for split in (True, False):
+            part = [g for g, s in zip(grads, sharded) if g is not None and s == split]
+            norms = torch.stack(torch._foreach_norm(part)) if part else ref.new_zeros(1)
+            sq.append((norms * norms).sum())
+        return torch.sqrt(model_sum(sq[0], axis) + sq[1])
+
     @staticmethod
     def _count_(t: torch.Tensor, inc, ok) -> None:
         """``t += inc`` (``inc`` None: ``t = 0``) where ``ok`` holds."""
@@ -248,7 +274,10 @@ class Optimizer:
         # 1. clip by the global norm of every leaf, frozen ones included; a
         # missing gradient is zeros and adds nothing to the norm
         present = [g for g in grads if g is not None]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
+        if self.model is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
+        else:
+            norm = self._model_axis_norm(grads)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
         p = [params[i] for i in self.trained]
         g = [grads[i] if grads[i] is not None else torch.zeros_like(params[i]) for i in self.trained]

@@ -50,6 +50,24 @@ the step computes what one device computes on the global batch.
   ranks once per epoch;
 - the test split's predictions are gathered and rank 0 writes the result
   files; rank 0 writes the checkpoints, every rank restores them.
+
+A mesh with a model axis of N > 1 ranks (``create_mesh(data, model)``)
+also splits the parameters, as the JAX engine's ``param_sharding_rules``
+do (``mgnns_tpu/engine/train.py:150-155, 850-854``):
+
+- at construction, and in :meth:`Engine.load_model_state` and
+  :meth:`Engine.restore`, every rank takes global rank 0's whole trees and
+  keeps its shards (:func:`~mgnns_tpu_torch.parallel.sharding.shard_tree`);
+  the optimizer state is made from the shards;
+- ``apply_fn`` also gets ``model=``, the
+  :class:`~mgnns_tpu_torch.parallel.sharding.Shards` view whose layers run
+  the model axis's collectives; the ranks of one data position run the same
+  rows, draw the same dropout masks and compute the same loss;
+- the gradient sum stays on the data axis; the clip's norm sums the
+  sharded leaves' squares over the model axis;
+- global rank 0 writes every file; a checkpoint holds whole, unpadded
+  leaves (:func:`~mgnns_tpu_torch.parallel.sharding.unshard_tree`), the
+  same as a 1-rank run's, so it restores on any mesh.
 """
 
 from __future__ import annotations
@@ -116,38 +134,48 @@ class Engine:
         eval_only: bool = False,
         device="cuda",
         mesh=None,
+        param_sharding_rules=None,
+        heads: int | None = None,
     ):
         """``params`` / ``batch_stats`` are moved to ``device``, which raises
         when it is CUDA and no card is present.  ``eval_only`` builds no
-        optimizer state.  ``mesh``: train on its data axis (see the
-        module's docstring); every rank of it builds the engine."""
+        optimizer state.  ``mesh``: train on its data and model axes (see
+        the module's docstring); every rank of it builds the engine with the
+        same whole trees.  ``param_sharding_rules``: the model axis's rules
+        (:func:`~mgnns_tpu_torch.parallel.sharding.mgnns_param_rules`,
+        ``text_model_param_rules``); without them every leaf is replicated
+        on it.  ``heads``: the attention's head count, for the head rule of
+        :func:`~mgnns_tpu_torch.parallel.sharding.place`."""
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
-        self.axis = None
+        self.axis = self.model_axis = self._world = None
         if mesh is not None:
-            from mgnns_tpu_torch.parallel.collectives import DataAxis
+            from mgnns_tpu_torch.parallel.collectives import DataAxis, ModelAxis, world_axis
 
             self.axis = DataAxis.of(mesh, self.device)
+            model = ModelAxis.of(mesh, self.device)
+            self.model_axis = model if model.size > 1 else None
+            # the axis of the writer's saves and barriers: every rank
+            self._world = self.axis if self.model_axis is None else world_axis(self.device)
+        self._rules = param_sharding_rules or []
+        self._heads = heads
+        self.placements = self.shards = None  # this rank's view of the model axis
         self.num_classes = num_classes
         self.aux_loss_weight = aux_loss_weight
         self.nan_guard = nan_guard
         self.seed = seed
-        self.params = tree_to(params, self.device)
-        # a copy: the engine updates the running statistics in place
-        self.batch_stats = tree_to(batch_stats, self.device, copy=True)
         self.opt = None if eval_only else Optimizer(
-            self.params, lr=lr, lrp=lrp, weight_decay=weight_decay, grad_clip=grad_clip,
+            params, lr=lr, lrp=lrp, weight_decay=weight_decay, grad_clip=grad_clip,
             steps_per_epoch=steps_per_epoch, epoch_step=epoch_step, lr_decay=lr_decay,
             faithful=faithful_param_groups, accumulation_steps=accumulation_steps,
             freeze_trunks=freeze_trunks, algo=optimizer_algo)
-        self.opt_state = self.opt.init(self.params) if self.opt is not None else None
-        self._replicate()
+        self._set_state(params, batch_stats)
         self.step = 0
         self.checkpointer = None
         if checkpoint_dir is not None:
             from mgnns_tpu_torch.engine.checkpoint import Checkpointer
 
-            self.checkpointer = Checkpointer(checkpoint_dir, max_to_keep, axis=self.axis)
+            self.checkpointer = Checkpointer(checkpoint_dir, max_to_keep, axis=self._world)
         self.epoch = 0
         self.best_score = 0.0
         self._gens = SiteGenerators(self.device, self.axis)
@@ -155,19 +183,67 @@ class Engine:
 
     @property
     def is_writer(self) -> bool:
-        """Whether this rank writes the run's files (rank 0 of a mesh)."""
-        return self.axis is None or self.axis.rank == 0
+        """Whether this rank writes the run's files (global rank 0 of a mesh)."""
+        return self._world is None or self._world.rank == 0
 
-    def _replicate(self) -> None:
-        """Give every rank of the mesh rank 0's state."""
-        if self.axis is not None:
-            from mgnns_tpu_torch.parallel.mesh import replicate_tree
+    def _set_state(self, params, batch_stats) -> None:
+        """Take whole trees: on the device, global rank 0's on every rank of
+        a mesh, this rank's shards on a model axis, and a fresh optimizer
+        state made from them."""
+        self.params = tree_to(params, self.device)
+        # a copy: the engine updates the running statistics in place
+        self.batch_stats = tree_to(batch_stats, self.device, copy=True)
+        from mgnns_tpu_torch.parallel.mesh import replicate_tree
 
-            replicate_tree(self._state_tensors(), self.axis)
+        # data rank 0's on the data axis, then model rank 0's (global rank 0's)
+        for axis in (self.axis, self.model_axis):
+            if axis is not None:
+                replicate_tree([self.params, self.batch_stats], axis)
+        self._shard()
+        self.opt_state = self.opt.init(self.params) if self.opt is not None else None
+
+    def _paths(self) -> list[str]:
+        return [p.lstrip("/") for p in tree_paths(self.params)]
+
+    def _shard(self) -> None:
+        """Keep this rank's shards of the whole parameters on a model axis."""
+        if self.model_axis is None:
+            return
+        from mgnns_tpu_torch.parallel.sharding import Shards, shard_tree
+
+        self.params, self.placements = shard_tree(self.params, self.model_axis, self._rules,
+                                                  self._heads)
+        self.shards = Shards(self.model_axis, self.placements)
+        if self.opt is not None:
+            self.opt.set_model_axis(self.model_axis, [self.placements[p].dim is not None
+                                                      for p in self._paths()])
+
+    def _map_opt_state(self, state: dict, fn) -> dict:
+        """``state`` with ``fn(leaves, placements, model axis)`` applied to
+        its per-leaf lists (the moments of the trained leaves, the
+        accumulator of every leaf)."""
+        placements = [self.placements[p] for p in self._paths()]
+        state = dict(state)
+        for key in ("mu", "nu", "acc"):
+            if key in state:
+                pl = placements if key == "acc" else [placements[i] for i in self.opt.trained]
+                state[key] = fn(state[key], pl, self.model_axis)
+        return state
+
+    def full_params(self) -> dict:
+        """The whole, unpadded parameters (on a model axis a collective:
+        every rank calls it)."""
+        if self.model_axis is None:
+            return self.params
+        from mgnns_tpu_torch.parallel.sharding import unshard_tree
+
+        return unshard_tree(self.params, self.placements, self.model_axis)
 
     def _apply(self, *args, **kw):
         if self.axis is not None:
             kw["axis"] = self.axis
+        if self.shards is not None:
+            kw["model"] = self.shards
         return self.apply_fn(*args, **kw)
 
     def _state_tensors(self) -> list[torch.Tensor]:
@@ -533,11 +609,19 @@ class Engine:
     # ---------------------------------------------------------- checkpoints
 
     def _payload(self) -> dict:
-        return {"params": self.params, "batch_stats": self.batch_stats,
-                "opt_state": self.opt_state, "step": self.step, "epoch": self.epoch,
+        """The train state with whole, unpadded leaves (a collective on a
+        model axis)."""
+        opt_state = self.opt_state
+        if self.model_axis is not None and self.opt is not None:
+            from mgnns_tpu_torch.parallel.sharding import unshard_leaves
+
+            opt_state = self._map_opt_state(opt_state, unshard_leaves)
+        return {"params": self.full_params(), "batch_stats": self.batch_stats,
+                "opt_state": opt_state, "step": self.step, "epoch": self.epoch,
                 "best_score": self.best_score}
 
     def save(self, metrics: dict | None = None) -> None:
+        """Checkpoint the train state; every rank of a mesh calls it."""
         assert self.checkpointer is not None
         self.checkpointer.save(self.step, self._payload(), metrics)
 
@@ -546,7 +630,8 @@ class Engine:
         onto the engine's device; training resumes at the next epoch.  The
         saved trees must have the leaves of the engine's (a checkpoint with
         dead modules needs an engine built with them); a missing or extra
-        leaf raises ``ValueError``."""
+        leaf raises ``ValueError``.  On a model axis the whole leaves are
+        sharded for this mesh, whatever mesh wrote them."""
         checkpointer = checkpointer or self.checkpointer
         assert checkpointer is not None
         restored = checkpointer.restore(step, device=self.device)
@@ -562,9 +647,14 @@ class Engine:
         self.step = int(restored["step"])
         self.epoch = int(restored["epoch"]) + 1
         self.best_score = float(restored["best_score"])
+        self._shard()
         if self.opt is not None:
             self.opt.label(self.params)  # the saved dict order is the state's leaf order
             self.opt_state = self.opt.adopt(self.opt_state, self.device)
+            if self.model_axis is not None:
+                from mgnns_tpu_torch.parallel.sharding import shard_leaves
+
+                self.opt_state = self._map_opt_state(self.opt_state, shard_leaves)
         self._graphs.clear()  # they read the tensors just replaced
 
     def restore_from_dir(self, path: str, step: int | None = None) -> None:
@@ -579,9 +669,7 @@ class Engine:
         """Replace the parameters and running statistics (for example weights
         converted from the JAX package or imported from a reference
         checkpoint, whose dead modules the optimizer then freezes) and start
-        a fresh optimizer state, as the reference's resume does."""
-        self.params = tree_to(params, self.device)
-        self.batch_stats = tree_to(batch_stats, self.device, copy=True)
-        self.opt_state = self.opt.init(self.params) if self.opt is not None else None
-        self._replicate()
+        a fresh optimizer state, as the reference's resume does.  The trees
+        are whole; on a model axis each rank keeps its shards."""
+        self._set_state(params, batch_stats)
         self._graphs.clear()  # they read the tensors just replaced

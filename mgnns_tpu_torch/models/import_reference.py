@@ -269,10 +269,18 @@ def _exp_trunk(out, prefix, params, stats):
                 bn(f"{pre}.downsample.1", pb["downsample_bn"], sb["downsample_bn"])
 
 
-def export_reference_state_dict(params: dict, batch_stats: dict) -> dict:
+def export_reference_state_dict(params: dict, batch_stats: dict, model=None) -> dict:
     """The port's trees -> a reference-named ``state_dict`` of contiguous
     CPU tensors (``torch.save`` it inside the reference's
-    ``{"epoch", "arch", "best_score", "state_dict"}`` wrapper)."""
+    ``{"epoch", "arch", "best_score", "state_dict"}`` wrapper).  ``model``:
+    the :class:`~mgnns_tpu_torch.parallel.sharding.Shards` view when
+    ``params`` are this rank's shards on a model axis: the whole leaves are
+    gathered first, without their padding rows, so a strict reference load
+    sees the reference's shapes (a collective: every rank calls it)."""
+    if model is not None:
+        from mgnns_tpu_torch.parallel.sharding import unshard_tree
+
+        params = unshard_tree(params, model.placements, model.axis)
     out: dict = {"embedding.weight": _out(params["embedding"]["table"])}
     _exp_rnn(out, "lstm", params["lstm"])
     out["text_features.node_hidden.weight"] = _out(params["text_gcn"]["node_embedding"])

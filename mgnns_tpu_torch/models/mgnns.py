@@ -21,6 +21,12 @@ the batch).  The trunks' running statistics are the separate
 ``torch.profiler`` ranges (``mgnns.text_gcn``, ``.lstm``,
 ``.object_channel``, ``.place_channel``, ``.fusion``) for the per-stage
 breakdown; without a profiler each is one host call per forward.
+
+On a model axis (``model=``, :mod:`mgnns_tpu_torch.parallel.sharding`'s
+rules) the text tables and the embedding are vocab-parallel, the attention
+stacks split their heads, ``gc1``/``gc2`` are a column/row pair applied per
+side, and ``liner_img_*`` and ``multi_linear_1`` are row-parallel; the
+trunks, the LSTM and the label attention are replicated.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from mgnns_tpu_torch.graphs.cooccur import gen_adj
 from mgnns_tpu_torch.nn import attention, image_gcn, lstm, resnet, text_gcn
 from mgnns_tpu_torch.nn.core import (
     RngStream, as_param, dropout, embedding, embedding_init, leaky_relu, linear, linear_init,
+    scope, sharded,
 )
 from mgnns_tpu_torch.utils import resolve_device, tree_to
 
@@ -170,7 +177,8 @@ def mgnns_init(
 
 
 def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.Tensor, *,
-                   side: str, cfg: ModelConfig, train: bool, rngs: RngStream, axis=None):
+                   side: str, cfg: ModelConfig, train: bool, rngs: RngStream, axis=None,
+                   model=None):
     """One image channel (reference ``:450-479`` object / ``:482-506``
     place).  Returns (memory_bank [B, h*w, d], channel_vec [B, 300],
     new trunk statistics)."""
@@ -200,13 +208,16 @@ def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.T
         feats, new_stats = trunk_fn(image)                          # [B, h, w, 2048]
     feats = feats.float()  # the heads run in float32 (the JAX package's feats32)
     B, H, W, C = feats.shape
-    memory_bank = linear(params[f"liner_img_{side}"], feats.reshape(B, H * W, C))
+    memory_bank = linear(params[f"liner_img_{side}"], feats.reshape(B, H * W, C),
+                         row=sharded(model, f"liner_img_{side}/w"))
     pooled = feats.amax(dim=(1, 2))                                 # [B, 2048]
 
     adj = gen_adj(params[f"{side}_A"].detach())                     # the reference detaches
-    x = image_gcn.graph_conv_apply(params["gc1"], consts[f"{side}_inp"], adj)
+    x = image_gcn.graph_conv_apply(params["gc1"], consts[f"{side}_inp"], adj,
+                                   column=sharded(model, "gc1/w"))
     x = leaky_relu(x)
-    x = image_gcn.graph_conv_apply(params["gc2"], x, adj)          # [C_cls, 2048]
+    x = image_gcn.graph_conv_apply(params["gc2"], x, adj,
+                                   row=sharded(model, "gc2/w"))    # [C_cls, 2048]
     x = pooled @ x.T                                                # [B, C_cls]
 
     att = attention.label_attention_apply(
@@ -220,7 +231,7 @@ def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.T
 def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
                 cfg: ModelConfig, train: bool = False,
                 generator: torch.Generator | None = None,
-                axis=None) -> tuple[torch.Tensor, dict, dict]:
+                axis=None, model=None) -> tuple[torch.Tensor, dict, dict]:
     """Forward pass (``mgnns_tpu/models/mgnns.py:277-380``).
 
     Args:
@@ -236,6 +247,8 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
         the dropout masks are the global batch's when ``generator`` comes
         from a :class:`~mgnns_tpu_torch.nn.core.SiteGenerators` with the
         same axis (the engine's).
+      model: the :class:`~mgnns_tpu_torch.parallel.sharding.Shards` view of
+        the model axis over ``params`` when they are this rank's shards.
     Returns:
       (logits [B, num_labels], new_batch_stats, aux); ``aux`` holds
       ``head_diversity`` (the image->text stacks' mean over the batch) when
@@ -250,9 +263,11 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
         text_feature = text_gcn.text_gcn_apply(
             params["text_gcn"], batch["ids"], batch["lens"], batch["eids"],
             ngram=(batch["eids"].shape[-1] - 1) // 2, dropout_rate=cfg.text_dropout,
-            train=train, generator=rngs.next("text_gcn"))          # [B, 300]
+            train=train, generator=rngs.next("text_gcn"),
+            model=scope(model, "text_gcn"))                        # [B, 300]
     with record_function("mgnns.lstm"):
-        emb = embedding(params["embedding"]["table"], batch["ids"])
+        emb = embedding(params["embedding"]["table"], batch["ids"],
+                        sharded(model, "embedding/table"))
         text_memory_bank, _ = lstm.lstm_apply(
             params["lstm"], emb, batch["lens"], dropout_rate=cfg.dropout, train=train,
             generator=rngs.next("lstm"))                            # [B, L, 300]
@@ -261,11 +276,11 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
     with record_function("mgnns.object_channel"):
         obj_bank, obj_vec, new_stats["object_trunk"] = _image_channel(
             params, batch_stats, consts, image, side="object", cfg=cfg, train=train, rngs=rngs,
-            axis=axis)
+            axis=axis, model=model)
     with record_function("mgnns.place_channel"):
         plc_bank, plc_vec, new_stats["place_trunk"] = _image_channel(
             params, batch_stats, consts, image, side="place", cfg=cfg, train=train, rngs=rngs,
-            axis=axis)
+            axis=axis, model=model)
 
     head_diffs: list = []
 
@@ -273,7 +288,8 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
         for i, blk in enumerate(params[name]):
             res = attention.my_mha_apply(blk, q, kv, kv, mask, n_head=cfg.n_head, d_kv=cfg.d_kv,
                                          dropout_rate=cfg.dropout, train=train,
-                                         generator=rngs.next(f"{tag}{i}"), is_regu=is_regu)
+                                         generator=rngs.next(f"{tag}{i}"), is_regu=is_regu,
+                                         model=scope(model, name, i))
             q = res[0]
             if is_regu:
                 head_diffs.append(res[2])
@@ -295,7 +311,7 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
                 aux["head_diversity"] = aux["head_diversity"] / axis.size
         multi = torch.cat([text_img_object, text_img_place, img_object_text, img_place_text],
                           dim=1)                                    # [B, 1200]
-        multi = linear(params["multi_linear_1"], multi)
+        multi = linear(params["multi_linear_1"], multi, row=sharded(model, "multi_linear_1/w"))
         multi = dropout(multi, cfg.dropout, rngs.next("classifier"), train)
         logits = linear(params["multi_linear_2"], multi)
     return logits, new_stats, aux

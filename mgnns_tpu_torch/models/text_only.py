@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from mgnns_tpu_torch.nn import text_gcn
-from mgnns_tpu_torch.nn.core import RngStream, linear, linear_init
+from mgnns_tpu_torch.nn.core import RngStream, linear, linear_init, scope
 from mgnns_tpu_torch.utils import resolve_device
 
 
@@ -39,12 +39,16 @@ def text_model_init(
 
 
 def text_model_apply(params: dict, batch: dict, *, ngram: int, dropout_rate: float = 0.5,
-                     train: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+                     train: bool = False, generator: torch.Generator | None = None,
+                     model=None) -> torch.Tensor:
     """batch: ``ids`` [B, L], ``lens`` [B] int32, ``eids`` [B, L, W].
     Returns logits [B, num_labels].  In train mode the text GCN's readout
-    takes dropout from ``generator``."""
+    takes dropout from ``generator``.  ``model``: the view of the model
+    axis when the text tables are this rank's blocks of rows
+    (:func:`mgnns_tpu_torch.parallel.sharding.text_model_param_rules`)."""
     rngs = RngStream(generator)
     h = text_gcn.text_gcn_apply(params["text_gcn"], batch["ids"], batch["lens"],
                                 batch["eids"], ngram=ngram, dropout_rate=dropout_rate,
-                                train=train, generator=rngs.next("text_gcn"))
+                                train=train, generator=rngs.next("text_gcn"),
+                                model=scope(model, "text_gcn"))
     return linear(params["head"], h)

@@ -26,6 +26,12 @@ Port of the JAX package's ``mgnns_tpu/nn/attention.py``:
 Dropout sits where the JAX package puts it (attention probabilities, output
 projection, FFN, label attention) and draws from per-site generators
 (:class:`mgnns_tpu_torch.nn.core.RngStream`).
+
+On a model axis (``model=``) the q/k/v projections are column-parallel,
+so a rank computes its ``H / N`` heads, and ``fc`` is row-parallel; the
+FFN's ``w_1`` is column-parallel and ``w_2`` row-parallel.  A rank draws
+the attention dropout mask for every head and keeps its heads', and the
+head-diversity penalty gathers every head first.
 """
 
 from __future__ import annotations
@@ -35,7 +41,10 @@ import math
 import numpy as np
 import torch
 
-from mgnns_tpu_torch.nn.core import RngStream, dropout, layer_norm, layer_norm_init, linear, linear_init
+from mgnns_tpu_torch.nn.core import (
+    RngStream, dropout, layer_norm, layer_norm_init, linear, linear_init, scope, sharded,
+)
+from mgnns_tpu_torch.parallel.collectives import copy_to_model, gather_from_model
 from mgnns_tpu_torch.utils import resolve_device
 
 
@@ -68,28 +77,41 @@ def head_diversity(output_heads: torch.Tensor) -> torch.Tensor:
 def mha_apply(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | None = None, *, n_head: int, d_k: int, d_v: int,
               dropout_rate: float = 0.1, train: bool = False,
-              generator: torch.Generator | None = None, is_regu: bool = False):
+              generator: torch.Generator | None = None, is_regu: bool = False, model=None):
     """q [B, Lq, d_model], k/v [B, Lk, d_model], mask [B, Lq, Lk] float
     (0.0 = masked).  Returns (out [B, Lq, d_model], attn [B, H, Lq, Lk]), and
-    with ``is_regu`` also the head-diversity penalty [B] of query 0."""
+    with ``is_regu`` also the head-diversity penalty [B] of query 0.  On a
+    model axis of N ranks that splits the heads, ``attn`` holds this rank's
+    ``H / N`` heads."""
     rngs = RngStream(generator)
-    H = n_head
+    heads = sharded(model, "w_qs/w")
+    H = n_head if heads is None else n_head // heads.size
     B, Lq, _ = q.shape
     Lk = k.shape[1]
-    qh = linear(p["w_qs"], q).reshape(B, Lq, H, d_k)
-    kh = linear(p["w_ks"], k).reshape(B, Lk, H, d_k)
-    vh = linear(p["w_vs"], v).reshape(B, Lk, H, d_v)
+    qc, kc, vc = q, k, v
+    if heads is not None:
+        # one gradient all-reduce per distinct input (k is v in the model)
+        qc = copy_to_model(q, heads)
+        kc = copy_to_model(k, heads)
+        vc = kc if v is k else copy_to_model(v, heads)
+    qh = linear(p["w_qs"], qc).reshape(B, Lq, H, d_k)
+    kh = linear(p["w_ks"], kc).reshape(B, Lk, H, d_k)
+    vh = linear(p["w_vs"], vc).reshape(B, Lk, H, d_v)
     attn = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(d_k)
     if mask is not None:
         attn = attn.masked_fill(mask[:, None, :, :] == 0.0, float("-inf"))
     attn = torch.softmax(attn, dim=-1)
-    attn = dropout(attn, dropout_rate, rngs.next("attn"), train)
+    attn = dropout(attn, dropout_rate, rngs.next("attn"), train,
+                   shard=None if heads is None else (heads, 1))
     out_h = torch.einsum("bhqk,bkhd->bqhd", attn, vh)  # [B, Lq, H, d_v]
-    out = linear(p["fc"], out_h.reshape(B, Lq, H * d_v))
+    out = linear(p["fc"], out_h.reshape(B, Lq, H * d_v), row=sharded(model, "fc/w"))
     out = dropout(out, dropout_rate, rngs.next("proj"), train)
     out = layer_norm(p["ln"], out + q)
     if is_regu:
-        return out, attn, head_diversity(out_h[:, 0, :, :])
+        query0 = out_h[:, 0, :, :]
+        if heads is not None:
+            query0 = gather_from_model(query0, heads, dim=1)
+        return out, attn, head_diversity(query0)
     return out, attn
 
 
@@ -99,8 +121,9 @@ def ffn_init(g: torch.Generator, d_in: int, d_hid: int) -> dict:
 
 
 def ffn_apply(p: dict, x: torch.Tensor, *, dropout_rate: float = 0.1, train: bool = False,
-              generator: torch.Generator | None = None) -> torch.Tensor:
-    out = linear(p["w_2"], torch.relu(linear(p["w_1"], x)))
+              generator: torch.Generator | None = None, model=None) -> torch.Tensor:
+    h = torch.relu(linear(p["w_1"], x, column=sharded(model, "w_1/w")))
+    out = linear(p["w_2"], h, row=sharded(model, "w_2/w"))
     out = dropout(out, dropout_rate, generator, train)
     return layer_norm(p["ln"], out + x)
 
@@ -113,7 +136,7 @@ def my_mha_init(g: torch.Generator, n_head: int, d_model: int, d_kv: int) -> dic
 def my_mha_apply(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  mask: torch.Tensor | None = None, *, n_head: int, d_kv: int,
                  dropout_rate: float = 0.1, train: bool = False,
-                 generator: torch.Generator | None = None, is_regu: bool = False):
+                 generator: torch.Generator | None = None, is_regu: bool = False, model=None):
     """q [B, d_model]; k/v [B, L, d_model]; mask [B, L] float or None.
     Returns (out [B, d_model], attn), and the head-diversity penalty [B]
     third with ``is_regu``."""
@@ -121,9 +144,9 @@ def my_mha_apply(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask3 = mask[:, None, :] if mask is not None else None
     res = mha_apply(p["slf_attn"], q[:, None, :], k, v, mask3, n_head=n_head, d_k=d_kv,
                     d_v=d_kv, dropout_rate=dropout_rate, train=train,
-                    generator=rngs.next("mha"), is_regu=is_regu)
+                    generator=rngs.next("mha"), is_regu=is_regu, model=scope(model, "slf_attn"))
     out = ffn_apply(p["pos_ffn"], res[0], dropout_rate=dropout_rate, train=train,
-                    generator=rngs.next("ffn"))[:, 0, :]
+                    generator=rngs.next("ffn"), model=scope(model, "pos_ffn"))[:, 0, :]
     return (out, *res[1:])
 
 

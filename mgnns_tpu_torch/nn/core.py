@@ -8,6 +8,14 @@ relies on, drawn from an explicit ``torch.Generator`` on the parameters'
 device.  Dropout masks come from ``torch.Generator``s too, so they cannot
 equal the JAX package's ``jax.random.bernoulli`` masks; the tests compare the
 two packages at dropout 0 and test dropout on its own.
+
+On a model axis (:mod:`mgnns_tpu_torch.parallel.sharding`) a parameter
+leaf may be this rank's shard of the whole.  A model's apply function then
+takes ``model=``, a :class:`~mgnns_tpu_torch.parallel.sharding.Shards`
+view, hands each submodule its part (:func:`scope`) and asks it which
+leaves are split (:func:`sharded`); :func:`linear` and :func:`embedding`
+take the axis of a split leaf and run its collectives.  Without ``model``
+every function here runs as it does on one device.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ import math
 
 import numpy as np
 import torch
+
+from mgnns_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 
 
 def uniform(g: torch.Generator, shape, bound: float) -> torch.Tensor:
@@ -74,7 +84,9 @@ class SiteGenerators:
     DataAxis`) of a step that runs on several ranks.  :func:`dropout` then
     draws each mask for the global batch and keeps this rank's rows, so N
     ranks apply the masks that one device draws for the global batch, as
-    the JAX package does under SPMD."""
+    the JAX package does under SPMD.  The ranks of one data position on a
+    model axis hold the same tree with the same seeds, so they draw the
+    same masks."""
 
     def __init__(self, device, axis=None):
         self.device = torch.device(device)
@@ -134,6 +146,20 @@ class RngStream:
 
 
 # ---------------------------------------------------------------------------
+# The model axis
+
+
+def scope(model, *parts):
+    """The view of the subtree ``parts`` of a model-axis view (None: no axis)."""
+    return None if model is None else model.at(*parts)
+
+
+def sharded(model, name: str):
+    """The model axis when leaf ``name`` of the view is split over it, else None."""
+    return None if model is None else model.axis_of(name)
+
+
+# ---------------------------------------------------------------------------
 # Linear
 
 
@@ -155,8 +181,21 @@ def linear_init(g: torch.Generator, in_dim: int, out_dim: int, w_init="torch",
     return {"w": w, "b": uniform(g, (out_dim,), 1.0 / math.sqrt(in_dim))}
 
 
-def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+def linear(p: dict, x: torch.Tensor, *, column=None, row=None) -> torch.Tensor:
+    """``x @ w + b``.  ``column``: the model axis when ``p`` is
+    column-parallel (``w [in, out/N]``, ``b [out/N]``): ``x`` is replicated
+    and the output holds this rank's columns.  ``row``: the model axis when
+    ``p`` is row-parallel (``w [in/N, out]``, ``b`` whole): ``x`` is this
+    rank's ``in/N`` columns of the input, or the whole input, of which the
+    rank takes its slice; the partial products are summed over the axis and
+    the bias is added once, after the sum."""
+    if row is not None:
+        n = p["w"].shape[0]
+        if x.shape[-1] != n:
+            x = copy_to_model(x, row).narrow(-1, row.rank * n, n)
+        y = reduce_from_model(x @ p["w"], row)
+    else:
+        y = (x if column is None else copy_to_model(x, column)) @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
@@ -181,8 +220,18 @@ def embedding_init(g: torch.Generator, vocab_size: int, dim: int, padding_idx: i
     return {"table": table}
 
 
-def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+def embedding(table: torch.Tensor, ids: torch.Tensor, model=None) -> torch.Tensor:
+    """``table[ids]``.  ``model``: the model axis when ``table`` is this
+    rank's block of rows (vocab-parallel): ids outside the block gather
+    zeros, and the sum over the axis holds every row once; the gradient
+    reaches only the rows of the rank's block."""
+    if model is None:
+        return table[ids]
+    rows = table.shape[0]
+    local = ids.long() - model.rank * rows
+    hit = (local >= 0) & (local < rows)
+    out = table[torch.where(hit, local, 0)]
+    return reduce_from_model(torch.where(hit[..., None], out, 0.0), model)
 
 
 # ---------------------------------------------------------------------------
@@ -216,19 +265,30 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            train: bool) -> torch.Tensor:
+            train: bool, shard: tuple | None = None) -> torch.Tensor:
     """Inverted dropout; the identity when not training, at rate 0 or
     without a generator.  A generator of a :class:`SiteGenerators` tree with
     a data axis of N ranks draws the mask of the global batch ``[N * B,
-    ...]`` and keeps this rank's rows ``[rank * B, (rank + 1) * B)``."""
+    ...]`` and keeps this rank's rows ``[rank * B, (rank + 1) * B)``.
+    ``shard``: ``(model axis, dim)`` when ``x`` is this rank's slice along
+    ``dim`` of a tensor split over the model axis (attention heads); the
+    mask is drawn for the whole tensor and the rank keeps its slice.  A
+    replicated ``x`` gets the same mask on every rank of the model axis,
+    whose generators are seeded alike."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
     axis = generator.tree.axis if isinstance(generator, SiteGenerator) else None
+    shape = list(x.shape)
+    if axis is not None and axis.size > 1:
+        shape[0] *= axis.size
+    if shard is not None:
+        shape[shard[1]] *= shard[0].size
+    u = torch.rand(shape, generator=generator, device=x.device)
     if axis is not None and axis.size > 1:
         B = x.shape[0]
-        u = torch.rand((B * axis.size, *x.shape[1:]), generator=generator, device=x.device)
         u = u[axis.rank * B:(axis.rank + 1) * B]
-    else:
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+    if shard is not None:
+        model, dim = shard
+        u = u.narrow(dim, model.rank * x.shape[dim], x.shape[dim])
     return torch.where(u < keep, x / keep, 0.0)

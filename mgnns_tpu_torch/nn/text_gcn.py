@@ -5,6 +5,12 @@ over the window's edge-weighted messages (kernel K1, with K2 as its backward,
 :mod:`mgnns_tpu_torch.kernels.edge_max`), then per unique word the max over
 its positions, summed over words, then dropout and ReLU (reference
 ``models/Text_GCN.py:242-275``).
+
+On a model axis the node and edge tables are vocab-parallel
+(:func:`mgnns_tpu_torch.nn.core.embedding`): each gather sums over the axis,
+so K1 runs on the whole ``[B, L, D]`` on every rank, at the shapes and with
+the plain version it has on one device, and K2's ``d_emb`` and ``d_w`` flow
+back into each rank's block of rows.
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ import numpy as np
 import torch
 
 from mgnns_tpu_torch.kernels import edge_max
-from mgnns_tpu_torch.nn.core import as_param, dropout, embedding, normal
+from mgnns_tpu_torch.nn.core import as_param, dropout, embedding, normal, sharded
 
 
 def text_gcn_init(g: torch.Generator, vocab_size: int, hidden_size: int, num_edges: int,
@@ -71,10 +77,16 @@ def text_gcn_apply(
     dropout_rate: float = 0.5,
     train: bool = False,
     generator: torch.Generator | None = None,
+    model=None,
 ) -> torch.Tensor:
-    """Document representations [B, D]."""
-    emb = embedding(params["node_embedding"], ids)    # [B, L, D]
-    w = params["edge_weight"][:, 0][eids]             # [B, L, W]
+    """Document representations [B, D].  ``model``: the view of the model
+    axis over ``params`` (see :mod:`mgnns_tpu_torch.nn.core`)."""
+    emb = embedding(params["node_embedding"], ids, sharded(model, "node_embedding"))  # [B, L, D]
+    ew = sharded(model, "edge_weight")
+    if ew is None:
+        w = params["edge_weight"][:, 0][eids]             # [B, L, W]
+    else:
+        w = embedding(params["edge_weight"], eids, ew)[..., 0]
     m = edge_max.window_max_aggregate(emb, w, lens, ngram)
     h = dropout(unique_word_readout(m, ids, lens), dropout_rate, generator, train)
     return torch.relu(h)

@@ -1,4 +1,4 @@
-"""The collectives of the data axis, written out.
+"""The collectives of the data and model axes, written out.
 
 This module has no counterpart in the JAX package.  There a train step is
 jitted with the batch sharded ``P('data')``, and XLA inserts every
@@ -18,6 +18,22 @@ global batch:
 - :func:`broadcast_`, :func:`barrier`, :func:`all_true`: replicated state,
   coordinated saves and the shared-directory probe.
 
+The model axis holds each sharded parameter as this rank's shard, a plain
+tensor (:mod:`mgnns_tpu_torch.parallel.sharding`), and Megatron-style
+autograd functions carry its collectives through a forward and a backward:
+
+- :func:`copy_to_model`: the identity forward, an all-reduce of the
+  gradient backward; at the input of a column-parallel layer;
+- :func:`reduce_from_model`: an all-reduce forward, the identity backward;
+  at the output of a row-parallel layer and of a vocab-parallel gather;
+- :func:`gather_from_model`: every rank's slice along a dimension forward,
+  this rank's slice of the gradient backward (no sum: what follows it is
+  replicated);
+- :func:`model_sum`: a sum over the axis outside autograd (the clip norm).
+
+Only ``all_reduce`` and ``broadcast`` run: both backends take them on CUDA
+tensors, captured (NCCL) or not.
+
 Every function is a collective: every rank of the axis calls it, in the same
 order.  Collectives on the card under NCCL can be captured in a CUDA graph
 (:mod:`mgnns_tpu_torch.engine.graphs`); gloo's cannot.
@@ -26,6 +42,7 @@ order.  Collectives on the card under NCCL can be captured in a CUDA graph
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 import torch.distributed as dist
@@ -42,9 +59,11 @@ class DataAxis:
     device: torch.device
     backend: str
 
+    DIM: ClassVar[str] = "data"
+
     @classmethod
-    def of(cls, mesh, device) -> "DataAxis":
-        group = mesh.get_group("data")
+    def of(cls, mesh, device):
+        group = mesh.get_group(cls.DIM)
         return cls(group=group, rank=dist.get_rank(group), size=dist.get_world_size(group),
                    device=torch.device(device), backend=str(dist.get_backend(group)))
 
@@ -52,6 +71,21 @@ class DataAxis:
     def capturable(self) -> bool:
         """Whether a CUDA graph can hold this axis's collectives (NCCL's)."""
         return self.backend == "nccl"
+
+
+class ModelAxis(DataAxis):
+    """The ``'model'`` dimension of a mesh as this rank sees it: the ranks
+    that hold the shards of one copy of the parameters (consecutive global
+    ranks, :func:`mgnns_tpu_torch.parallel.mesh.create_mesh`)."""
+
+    DIM = "model"
+
+
+def world_axis(device) -> DataAxis:
+    """The whole process group as one axis (replicated state and the
+    writer's saves under a 2-D mesh)."""
+    return DataAxis(group=dist.group.WORLD, rank=dist.get_rank(), size=dist.get_world_size(),
+                    device=torch.device(device), backend=str(dist.get_backend()))
 
 
 def all_reduce_sum(tensors: list[torch.Tensor], axis: DataAxis) -> list[torch.Tensor]:
@@ -182,3 +216,81 @@ def sync_batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, ep
     forward and one in the backward."""
     y, mean, var = _SyncBatchNorm.apply(x, scale, bias, eps, axis)
     return y, mean, var, (x.numel() // x.shape[1]) * axis.size
+
+
+# ------------------------------------------------------------------ model axis
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis: ModelAxis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.axis.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis: ModelAxis):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=axis.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather_cat(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on every rank) concatenated along
+    ``dim`` in rank order: an all-gather as an all-reduce into this rank's
+    slot (see :class:`_SyncBatchNorm`), outside autograd."""
+    slots = x.new_zeros((axis.size, *x.shape))
+    slots[axis.rank] = x
+    dist.all_reduce(slots, group=axis.group)
+    return torch.cat(slots.unbind(0), dim=dim)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis: ModelAxis, dim: int):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        return gather_cat(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n).contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """``x``, replicated over the model axis, at the input of a
+    column-parallel layer: each rank's backward holds the gradient of its
+    columns only, and the all-reduce sums them into the input's."""
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The sum over the model axis of every rank's partial ``x`` (a
+    row-parallel product, a vocab-parallel gather); its gradient is
+    replicated, so each rank takes it as it is."""
+    return _ReduceFromModel.apply(x, axis)
+
+
+def gather_from_model(x: torch.Tensor, axis: ModelAxis, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order.  What
+    follows is replicated, so every rank's gradient of the whole is the same
+    and each keeps its own slice of it: a summing backward would multiply
+    it by the axis size."""
+    return _GatherFromModel.apply(x, axis, dim)
+
+
+def model_sum(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The sum over the model axis of ``x``, outside autograd."""
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=axis.group)
+    return y

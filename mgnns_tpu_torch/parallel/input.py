@@ -5,7 +5,8 @@ Port of the JAX package's ``mgnns_tpu/parallel/input.py:46-253``, the same
 numpy arithmetic, so that global batch ``b`` holds the same records in both
 packages:
 
-- every **data-axis position** ``d`` (a rank here: one card each) owns a
+- every **data-axis position** ``d`` (the ranks of one model group here,
+  one card each) owns a
   fixed subset of records, assigned round-robin within its host's
   contiguous record slice (record ``j`` of a host with positions
   ``[p0..p0+k)`` goes to position ``p0 + j % k``, local row ``j // k``);
@@ -14,7 +15,8 @@ packages:
   **position-local** row ids; shuffling permutes within each position with
   a stream seeded by ``(seed + epoch, position)``;
 - global batch ``b`` is the concatenation of the positions' blocks in
-  position order, so rank ``r`` runs rows ``[r * Bd, (r + 1) * Bd)`` of it.
+  position order, so the ranks of position ``d`` run rows ``[d * Bd, (d + 1)
+  * Bd)`` of it.
 
 In the JAX package the device tables are one global array sharded over
 ``'data'`` and the gather runs shard-locally under ``shard_map``.  Here a
@@ -107,7 +109,11 @@ def make_input_plan(D: int, n_local: int, per_host_batch: int, *, n_global: int 
     lengths agree across hosts.  ``position`` is this rank's data-axis
     position (the rank of the process group by default, else the host's
     first); ``process_index`` / ``process_count`` default to
-    :mod:`~mgnns_tpu_torch.parallel.multihost`'s.
+    :mod:`~mgnns_tpu_torch.parallel.multihost`'s.  A position is a data
+    coordinate, not a rank: on a mesh of ``D x model`` ranks, rank ``r``
+    runs position ``r // model``, a host with ``k`` ranks holds ``k /
+    model`` positions, and the model ranks of one position load the same
+    rows.
     """
     me = multihost.process_index() if process_index is None else process_index
     nproc = multihost.process_count() if process_count is None else process_count
@@ -151,7 +157,14 @@ def make_input_plan(D: int, n_local: int, per_host_batch: int, *, n_global: int 
     if position is None:
         import torch.distributed as dist
 
-        position = dist.get_rank() if dist.is_initialized() else int(local_positions[0])
+        if dist.is_initialized():
+            world = dist.get_world_size()
+            if world % D:
+                raise ValueError(f"a data axis of {D} positions does not divide the world "
+                                 f"of {world} ranks")
+            position = dist.get_rank() // (world // D)
+        else:
+            position = int(local_positions[0])
     if position not in local_positions:
         raise ValueError(f"position {position} is not one of this host's positions "
                          f"{local_positions.tolist()}")

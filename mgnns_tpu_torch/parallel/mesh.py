@@ -2,11 +2,13 @@
 
 Port of the JAX package's ``mgnns_tpu/parallel/mesh.py``.  The mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with the JAX package's
-dimensions ``('data', 'model')`` over the world of ranks, one card each.
-This slice of the port takes the data axis: batches split over ``'data'``,
-and the parameters, the BatchNorm statistics and the optimizer state are
-replicated on every rank.  The model axis (``parallel/sharding.py``'s rules
-as DTensor placements) is ``ROADMAP.md`` queue 1 item 6b.
+dimensions ``('data', 'model')`` over the world of ranks, one card each,
+laid out row-major: rank ``r`` sits at data position ``r // model`` and
+model position ``r % model``, so the ranks of one model group are
+consecutive (on one host when ``model`` divides the ranks per host).
+Batches split over ``'data'``; the parameters split over ``'model'`` by
+:mod:`mgnns_tpu_torch.parallel.sharding`'s rules and are replicated over
+``'data'``, as are the BatchNorm statistics.
 """
 
 from __future__ import annotations
@@ -18,27 +20,25 @@ import torch.distributed as dist
 from mgnns_tpu_torch.parallel.collectives import DataAxis, broadcast_
 from mgnns_tpu_torch.utils import tree_leaves
 
-MODEL_AXIS = ("the mesh's model axis (sharded tables and projections) is ROADMAP.md queue 1 "
-              "item 6b")
-
 # batch fields whose leading axis is the batch dimension
 BATCH_FIELDS = {"ids", "lens", "mask", "eids", "label", "weight", "sample_index", "image"}
 
 
 def create_mesh(data: int = 1, model: int = 1, device="cuda"):
-    """A ``('data', 'model')`` mesh of ``data`` ranks over the process group
-    (:func:`mgnns_tpu_torch.parallel.multihost.initialize` first).
-    ``data`` must equal the world size, and ``model`` must be 1."""
+    """A ``('data', 'model')`` mesh of ``data * model`` ranks over the
+    process group (:func:`mgnns_tpu_torch.parallel.multihost.initialize`
+    first), which must be the world."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if model != 1:
-        raise ValueError(f"model={model}: {MODEL_AXIS}")
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data={data} model={model}")
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a process group: start the ranks with torchrun "
                            "and call mgnns_tpu_torch.parallel.multihost.initialize()")
     world = dist.get_world_size()
-    if data != world:
-        raise ValueError(f"a data axis of {data} needs a world of {data} ranks, got {world}")
+    if data * model != world:
+        raise ValueError(f"a mesh of data {data} x model {model} needs a world of "
+                         f"{data * model} ranks, got {world}")
     return init_device_mesh(torch.device(device).type, (data, model),
                             mesh_dim_names=("data", "model"))
 
@@ -54,8 +54,10 @@ def replicate_tree(tree, axis: DataAxis) -> None:
 def batch_device_put(batch: dict, axis: DataAxis, device) -> dict:
     """This rank's rows of a host batch of the global batch size, on
     ``device``: the batch fields split over the data axis into equal blocks
-    in rank order, everything else whole.  ``weight_total`` is the global
-    batch's weight sum, the loss's normaliser on every rank."""
+    in the order of the data positions (``axis.rank`` is this rank's data
+    coordinate, which the ranks of one model group share), everything else
+    whole.  ``weight_total`` is the global batch's weight sum, the loss's
+    normaliser on every rank."""
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)

@@ -8,7 +8,9 @@ them (NCCL between cards, gloo on the CPU).  A JAX *process* is a *host*,
 which here is a ``torchrun`` node: :func:`process_index` and
 :func:`process_count` count nodes, and the ranks of a node share its record
 slice (:func:`process_batch_slice`), each rank taking its data-axis position
-of it (:mod:`mgnns_tpu_torch.parallel.input`).
+of it (:mod:`mgnns_tpu_torch.parallel.input`).  On a mesh with a model axis
+a position is a data coordinate: a node of ``k`` ranks holds ``k / model``
+positions, and the model ranks of one position load the same rows.
 
 1. every rank calls :func:`initialize` (a no-op outside ``torchrun``);
 2. :func:`mgnns_tpu_torch.parallel.mesh.create_mesh` builds the
@@ -84,7 +86,8 @@ def process_count() -> int:
 
 def process_batch_slice(n_samples: int, batch_size: int) -> tuple[int, int, int]:
     """(start, stop, per_host_batch): this host's contiguous record range and
-    its share of the global batch.  The global batch must divide by the host
+    its share of the global batch (every rank of the host, whatever its
+    model coordinate, loads the range).  The global batch must divide by the host
     count; ranges are balanced to within one record (the first ``n % p``
     hosts get the extra one)."""
     p = process_count()

@@ -18,6 +18,14 @@ reference ``.pth[.tar]``; the constructor takes trees in memory, for example
 from :mod:`mgnns_tpu_torch.convert`.  :class:`BatchingFrontend` coalesces
 concurrent requests into device batches, in front of the HTTP server
 (:mod:`mgnns_tpu_torch.cli.serve`).
+
+``Predictor(mesh=...)`` serves on a ``('data', 'model')`` mesh
+(:func:`mgnns_tpu_torch.parallel.mesh.create_mesh`), the counterpart of
+``mgnns_tpu/serving.py:106-136``: every rank builds the Predictor from the
+same whole weights and calls :meth:`Predictor.predict` with the same
+records (SPMD); the parameters split over ``'model'`` by the training
+rules, each bucket splits over ``'data'``, and the answers are gathered so
+that every rank returns the whole request.
 """
 
 from __future__ import annotations
@@ -43,32 +51,39 @@ from mgnns_tpu_torch.models.text_only import text_model_apply
 from mgnns_tpu_torch.utils import resolve_device, tree_leaves, tree_paths, tree_to
 
 
-def resolve_batch_buckets(requested: list[int] | None, max_batch: int) -> list[int]:
+def resolve_batch_buckets(requested: list[int] | None, max_batch: int,
+                          dsize: int = 1) -> list[int]:
     """Batch-size bucket ladder: a request for n records runs the smallest
     batch >= n instead of always the full ``max_batch``.  Defaults to powers
-    of 4 below ``max_batch``."""
+    of 4 of the smallest size the mesh's data axis of ``dsize`` positions
+    divides, below ``max_batch``; every bucket must divide by ``dsize``
+    (``mgnns_tpu/serving.py:37-60``)."""
     if requested is None:
         requested = []
-        b = 1
+        b = max(1, dsize)
         while b < max_batch:
             requested.append(b)
             b *= 4
     buckets = sorted({int(b) for b in requested} | {max_batch})
     for b in buckets:
-        if not 1 <= b <= max_batch:
-            raise ValueError(f"batch bucket {b} invalid (max_batch {max_batch})")
+        if b > max_batch or b % max(1, dsize) != 0 or b < 1:
+            raise ValueError(
+                f"batch bucket {b} invalid (max_batch {max_batch}, "
+                f"mesh data axis {dsize})")
     return buckets
 
 
 def eval_probs(params: dict, batch_stats: dict | None, consts: dict | None, batch: dict, *,
-               text_only: bool, ngram: int, cfg: ModelConfig | None) -> torch.Tensor:
+               text_only: bool, ngram: int, cfg: ModelConfig | None,
+               model=None) -> torch.Tensor:
     """The serving forward: the model's eval forward and a float32 softmax
     over the labels, [B, num_labels].  :class:`Predictor` runs it, and
-    :mod:`mgnns_tpu_torch.export` exports it."""
+    :mod:`mgnns_tpu_torch.export` exports it.  ``model``: the view of the
+    model axis when ``params`` are this rank's shards."""
     if text_only:
-        logits = text_model_apply(params, batch, ngram=ngram)
+        logits = text_model_apply(params, batch, ngram=ngram, model=model)
     else:
-        logits = mgnns_apply(params, batch_stats, consts, batch, cfg=cfg)[0]
+        logits = mgnns_apply(params, batch_stats, consts, batch, cfg=cfg, model=model)[0]
     return torch.softmax(logits.float(), dim=-1)
 
 
@@ -94,6 +109,7 @@ class Predictor:
         forward_fn=None,
         image_size: int | None = None,
         device="cuda",
+        mesh=None,
     ):
         """``params``: the text-only model's (``text_only=True``) or the
         fusion model's, e.g. from :mod:`mgnns_tpu_torch.convert`; the fusion
@@ -104,10 +120,14 @@ class Predictor:
         (:func:`mgnns_tpu_torch.export.load_exported`) needs no ``consts`` or
         ``cfg``, only the ``image_size`` it was exported at.
         Everything is moved to ``device``, which raises when it is CUDA and
-        no card is present."""
+        no card is present.  ``mesh``: serve on its data and model axes
+        (see the module's docstring); every rank builds the Predictor."""
         if forward_fn is None and not text_only and (
                 batch_stats is None or consts is None or cfg is None):
             raise ValueError("the fusion model needs batch_stats, consts and cfg")
+        if mesh is not None and forward_fn is not None:
+            raise ValueError("a mesh needs the live model: an exported program is a "
+                             "single-device program")
         self.device = resolve_device(device)
         self.vocab = vocab
         self.graph = graph
@@ -134,7 +154,25 @@ class Predictor:
             decode_threads = min(8, os.cpu_count() or 4)
         self._decode_pool = (
             ThreadPoolExecutor(decode_threads) if decode_threads > 1 else None)
-        self.batch_buckets = resolve_batch_buckets(batch_buckets, max_batch)
+        self.data = self.shards = None
+        if mesh is not None:
+            from mgnns_tpu_torch.parallel.collectives import DataAxis, ModelAxis
+            from mgnns_tpu_torch.parallel.sharding import (
+                Shards, mgnns_param_rules, shard_tree, text_model_param_rules,
+            )
+
+            self.data = DataAxis.of(mesh, self.device)
+            if max_batch % self.data.size:
+                raise ValueError(f"max_batch {max_batch} must be a multiple of the mesh data "
+                                 f"axis ({self.data.size})")
+            model = ModelAxis.of(mesh, self.device)
+            if model.size > 1:
+                rules = text_model_param_rules() if text_only else mgnns_param_rules()
+                self.params, placements = shard_tree(self.params, model, rules,
+                                                     heads=None if cfg is None else cfg.n_head)
+                self.shards = Shards(model, placements)
+        dsize = 1 if self.data is None else self.data.size
+        self.batch_buckets = resolve_batch_buckets(batch_buckets, max_batch, dsize)
         # per-stage latency of the most recent chunk (ms)
         self.last_timings: dict = {}
 
@@ -202,8 +240,13 @@ class Predictor:
 
     def _forward(self, batch_np: dict) -> torch.Tensor:
         """H2D copy + eval forward + softmax; returns device probs without
-        waiting for them."""
+        waiting for them.  On a mesh each data position runs its block of
+        the bucket's rows, and the blocks are gathered (a collective)."""
         t0 = time.perf_counter()
+        if self.data is not None and self.data.size > 1:
+            rows = next(iter(batch_np.values())).shape[0] // self.data.size
+            batch_np = {k: v[self.data.rank * rows:(self.data.rank + 1) * rows]
+                        for k, v in batch_np.items()}
         batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch_np.items()}
         with torch.inference_mode():
             if self.forward_fn is not None:
@@ -211,7 +254,11 @@ class Predictor:
             else:
                 probs = eval_probs(self.params, self.batch_stats, self.consts, batch,
                                    text_only=self.text_only, ngram=self.graph_cfg.ngram,
-                                   cfg=self.cfg)
+                                   cfg=self.cfg, model=self.shards)
+            if self.data is not None and self.data.size > 1:
+                from mgnns_tpu_torch.parallel.collectives import gather_cat
+
+                probs = gather_cat(probs, self.data)
         self.last_timings["forward_dispatch_ms"] = (time.perf_counter() - t0) * 1e3
         return probs
 
@@ -290,9 +337,11 @@ class Predictor:
         batch_buckets: list[int] | None = None,
         decode_threads: int | None = None,
         device="cuda",
+        mesh=None,
     ) -> "Predictor":
         """A Predictor on ``device`` (which raises when it is CUDA and no
-        card is present) from what the training CLI wrote.
+        card is present) from what the training CLI wrote; on ``mesh``
+        every rank calls it and keeps its shards.
 
         The vocabulary, PMI graph, label map and graph config come from the
         preprocessing files beside the checkpoints (:func:`load_preproc`),
@@ -333,7 +382,7 @@ class Predictor:
         common = dict(vocab=vocab, graph=graph, graph_cfg=graph_cfg, label_map=label_map,
                       image_backend=image_backend, image_root=image_root, max_batch=max_batch,
                       strict_images=strict_images, batch_buckets=batch_buckets,
-                      decode_threads=decode_threads, device=dev)
+                      decode_threads=decode_threads, device=dev, mesh=mesh)
         if text_only:
             from mgnns_tpu_torch.models.text_only import text_model_init
 

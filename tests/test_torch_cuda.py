@@ -439,11 +439,16 @@ def deterministic_cudnn():
     torch.backends.cudnn.deterministic = before
 
 
-def _scale_errors(got, want) -> float:
-    from mgnns_tpu_torch.utils import tree_leaves
+def _worst_leaf(got, want) -> tuple[float, str]:
+    """(the largest max |got - want| / the leaf's scale, the leaf's path)."""
+    from mgnns_tpu_torch.utils import tree_leaves, tree_paths
 
-    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
-               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    return max((float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12), path)
+               for a, b, path in zip(tree_leaves(got), tree_leaves(want), tree_paths(want)))
+
+
+def _scale_errors(got, want) -> float:
+    return _worst_leaf(got, want)[0]
 
 
 @pytest.mark.cuda
@@ -467,12 +472,14 @@ def test_captured_steps_equal_eager_steps(cuda_device, deterministic_cudnn, drop
     want = np.array([float(loop_eng.train_step(b, cm)) for b in batches], np.float32)
     assert got["capture_seconds"] > 0 and np.isfinite(got["losses"]).all()
     loss_err = float(np.abs(got["losses"] - want).max() / np.abs(want).max())
-    param_err = _scale_errors(graph_eng.params, loop_eng.params)
-    stat_err = _scale_errors(graph_eng.batch_stats, loop_eng.batch_stats)
-    print(f"captured vs eager, dropout {dropout}, remat {remat_policy}: losses {got['losses']} "
-          f"vs {want}; max error of scale: losses {loss_err}, parameters {param_err}, "
-          f"BN statistics {stat_err}")
-    assert loss_err <= 1e-6 and param_err <= 1e-6 and stat_err <= 1e-6
+    param_err, param_leaf = _worst_leaf(graph_eng.params, loop_eng.params)
+    stat_err, stat_leaf = _worst_leaf(graph_eng.batch_stats, loop_eng.batch_stats)
+    report = (f"captured vs eager, dropout {dropout}, remat {remat_policy}: losses "
+              f"{got['losses']} vs {want}; max error of scale: losses {loss_err}, parameters "
+              f"{param_err} (worst leaf {param_leaf}), BN statistics {stat_err} (worst leaf "
+              f"{stat_leaf})")
+    print(report)
+    assert loss_err <= 1e-6 and param_err <= 1e-6 and stat_err <= 1e-6, report
     np.testing.assert_array_equal(got["cm"], cm.cpu().numpy())
     assert int(graph_eng.opt_state["count"]) == graph_eng.step == 3
 

@@ -144,7 +144,7 @@ def test_confusion_and_metrics_match_jax(C):
     r = np.random.default_rng(C)
     preds, labels = r.integers(0, C, 50), r.integers(0, C, 50)
     w = (np.arange(50) < 45).astype(np.float32)
-    cm = M.confusion_update(M.confusion_init(C), torch.from_numpy(preds),
+    cm = M.confusion_update(M.confusion_init(C, CPU), torch.from_numpy(preds),
                             torch.from_numpy(labels), torch.from_numpy(w))
     jcm = JM.confusion_update(JM.confusion_init(C), jnp.asarray(preds), jnp.asarray(labels),
                               jnp.asarray(w))
@@ -370,7 +370,7 @@ def test_nan_guard_skips_bad_update():
     eng = Engine(apply_fn, params, stats, num_classes=2, lr=1e-1, steps_per_epoch=1, device=CPU)
     good = {"poison": np.float32(0.0), "label": np.array([0]), "weight": np.ones(1, np.float32)}
     bad = {"poison": np.float32(np.inf), "label": np.array([0]), "weight": np.ones(1, np.float32)}
-    cm = M.confusion_init(2)
+    cm = M.confusion_init(2, CPU)
     w0 = eng.params["gc1"]["w"].clone()
     loss = eng.train_step(bad, cm)
     assert not np.isfinite(float(loss))

@@ -492,11 +492,11 @@ def test_cli_on_two_ranks_equals_the_one_rank_cli(tmp_path, text_only, hosts):
 
 
 def test_cli_flags_that_still_raise():
-    """``--mesh_model 2`` names item 6b; ``--mesh_data 2`` in a world of one
-    process says how to start the ranks; a batch that does not split over
-    the ranks is refused before any work."""
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 6b"):
-        pmain.main(["--platform", "cpu", "--mesh_model", "2"])
+    """``--mesh_data 2 --mesh_model 2`` in a world of one process says it
+    needs 4 ranks and how to start them, as ``--mesh_data 2`` does; a batch
+    that does not split over the ranks is refused before any work."""
+    with pytest.raises(SystemExit, match="needs a world of 4 ranks.*--nproc_per_node 4"):
+        pmain.main(["--platform", "cpu", "--mesh_data", "2", "--mesh_model", "2"])
     with pytest.raises(SystemExit, match="needs a world of 2 ranks.*torch.distributed.run"):
         pmain.main(["--platform", "cpu", "--mesh_data", "2"])
     with pytest.raises(SystemExit, match="must divide by --mesh_data=4"):

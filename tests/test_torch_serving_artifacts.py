@@ -17,6 +17,7 @@ import torch
 
 from mgnns_tpu_torch.cli import main as pmain
 from mgnns_tpu_torch.cli import predict as ppredict
+from mgnns_tpu_torch.cli import serve as pserve
 from mgnns_tpu_torch.config import DataConfig, ModelConfig
 from mgnns_tpu_torch.data.dataset import load_constants
 from mgnns_tpu_torch.engine.checkpoint import Checkpointer
@@ -193,12 +194,18 @@ def test_predict_cli_writes_the_jsonl_of_predict(runs, tmp_path):
     _assert_same_answers(got, want)
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh_data", "2"], "item 6b"),
-                                       (["--mesh_model", "2"], "item 6b")])
+@pytest.mark.parametrize("flag,item", [(["--mesh_data", "2"], "item 6c"),
+                                       (["--mesh_model", "2"], "item 6c")])
 def test_predict_cli_rejects_unported_flags_naming_their_item(flag, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 {item}"):
+    """``cli.predict`` takes the mesh flags under torchrun
+    (tests/test_torch_model_axis.py): in a world of one process it says how
+    to start the ranks.  ``cli.serve`` still rejects them, naming the
+    ``ROADMAP.md`` item of a mesh front end."""
+    with pytest.raises(SystemExit, match="needs a world of 2 ranks.*torch.distributed.run"):
         ppredict.main(["--platform", "cpu", "--checkpoint", "x", "--data_root_path", "x",
                        "--input", "x"] + flag)
+    msgs = pserve.unported_flags(pserve.build_parser().parse_args(flag))
+    assert len(msgs) == 1 and f"ROADMAP.md queue 1 {item}" in msgs[0]
 
 
 def test_cli_init_from_reference_loads_every_weight(runs, tmp_path):

@@ -196,12 +196,12 @@ def _one_rank_run(toy: dict, name: str) -> dict:
              for p in (0, 1)]
     lds = [loaders(ds, p, tables=False) for p in plans]
     eng = Engine(toy_apply(cfg, consts), params, stats, **engine_kwargs(plans[0].num_batches))
-    cm = M.confusion_init(7)
+    cm = M.confusion_init(7, "cpu")
     losses = []
     for b0, b1 in zip(lds[0][0], lds[1][0]):
         batch = {k: _cat(b0[k], b1[k]) for k in b0 if k != "weight_total"}
         losses.append(float(eng.train_step(batch, cm)))
-    preds, ecm, lsum, wsum = {}, M.confusion_init(7), 0.0, 0.0
+    preds, ecm, lsum, wsum = {}, M.confusion_init(7, "cpu"), 0.0, 0.0
     for b0, b1 in zip(lds[0][1], lds[1][1]):
         batch = {k: _cat(b0[k], b1[k]) for k in b0 if k != "weight_total"}
         loss, p = eng.eval_step(batch, ecm)

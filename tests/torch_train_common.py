@@ -207,7 +207,7 @@ def datasets(data, image_size=32, backend="synthetic", image_root=".", train=Fal
 
 def step_losses(jeng, eng, jloader, loader, steps):
     jl, pl = [], []
-    jcm, cm = JM.confusion_init(7), M.confusion_init(7)
+    jcm, cm = JM.confusion_init(7), M.confusion_init(7, CPU)
     for jb, pb in zip(jloader, loader):
         jeng.state, loss, jcm = jeng._train_step(jeng.state, jb, jcm)
         jl.append(float(loss))
