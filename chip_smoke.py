@@ -28,7 +28,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    the launch counts of the run, one batch's logits against the same forward
    with K1's plain version, and one record's logits against the CPU under the
    package's default (within 1e-5 of scale), then the same with the
-   precision pin removed and TF32 allowed, which must differ more; the trunk
+   precision pin removed and TF32 allowed, which must differ more; the
+   native host preprocessing (``mgnns_tpu_torch.native``, built from
+   ``mgnns_tpu_torch/csrc/host_preproc.cpp``) against its numpy paths on the
+   corpus, equal array for array (pair counts, ``cal_pmi``'s graph, window
+   edge ids of a request and of the corpus), with host times; the trunk
    gradients of a 1-record train step (running-statistics BatchNorm, dropout
    0) on the card against the CPU the same two ways (Frobenius-relative
    5e-3, and TF32 further); then the text-only model as the fusion model;
@@ -125,7 +129,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    the checkpoint's whole leaves of the 1-rank run's shapes and the
    tables' padding rows zero; then a 16-record ``Predictor(mesh=...)``
    forward of the trained weights against one device's (labels equal,
-   probabilities within 1e-5).  NCCL refuses two ranks on one card, so the
+   probabilities within 1e-5); then ``cli.serve``'s HTTP server and frontend
+   on rank 0 over loopback, handing each chunk to rank 1
+   (``serving.MeshLink``), under 8 clients x 2 requests: answers against the
+   ranks' in-process mesh ``predict`` and one device's (labels equal,
+   probabilities within 1e-5), K1 once a chunk on each rank, and both ranks
+   stopped by ``shutdown()``.  NCCL refuses two ranks on one card, so the
    model axis at N > 1 runs over gloo only here.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
@@ -497,6 +506,85 @@ def profile_forward(pred: Predictor, batch_np: dict) -> None:
         log(f"  kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5} {e.key[:100]}")
 
 
+def _ms(fn):
+    """(fn(), its wall ms on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase3_native(vocab: list[str], texts: list[str], graph, pred: Predictor) -> None:
+    """The native host preprocessing (``mgnns_tpu_torch.native``) on phase
+    3's corpus against its numpy paths, equal array for array: the pair
+    counts (the native counter forced below its corpus-size threshold),
+    ``cal_pmi``'s graph, the window edge ids of a 16-record request and of
+    the whole corpus, and the 16-record request's encode in turns.  Host
+    times, of the card machine's CPU."""
+    from mgnns_tpu_torch import native
+    from mgnns_tpu_torch.data.text import encode_texts
+    from mgnns_tpu_torch.graphs import pmi
+    from mgnns_tpu_torch.graphs.vocab import make_word_to_id
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    lib = build.load_host("host_preproc")
+    log(f"phase 3: native host preprocessing available {ok}: {lib.lib._name if lib else None}, "
+        f"built in {lib.seconds if lib else None} s (0.0: built before) with "
+        f"{' '.join(build.CXX_FLAGS)}; first use {time.perf_counter() - t0} s")
+    if not ok:
+        raise SystemExit("phase 3: the native library is unavailable (no C++ compiler?)")
+    no_native = mock.patch.object(native, "_load", lambda: None)
+    forced = mock.patch.object(native, "_NATIVE_PAIR_THRESHOLD", 0)
+    w2i = make_word_to_id(vocab)
+    V = len(vocab)
+    ids = pmi._corpus_to_ids(pmi.pad_and_filter(texts, max_len=100), w2i)
+    with forced:
+        nat, nat_ms = _ms(lambda: native.pmi_pair_count(ids, V, 6))
+    ref, np_ms = _ms(lambda: native.pmi_pair_count_numpy(ids, V, 6))
+    counts_equal = all(np.array_equal(a, b) for a, b in zip(nat, ref))
+    with forced:
+        g_nat, gnat_ms = _ms(lambda: cal_pmi(texts, vocab, window_size=6, min_cooccurrence=2))
+    with no_native:
+        g_np, gnp_ms = _ms(lambda: cal_pmi(texts, vocab, window_size=6, min_cooccurrence=2))
+    graph_equal = all(np.array_equal(a, b) for a, b in ((g_nat.keys, g_np.keys),
+                                                        (g_nat.pmi, g_np.pmi),
+                                                        (g_np.keys, graph.keys)))
+    log(f"phase 3: pmi_pair_count on {ids.shape[0]} documents x {ids.shape[1]} "
+        f"({ids.shape[0] * ids.shape[1] * 12} candidate pairs, threshold "
+        f"{native._NATIVE_PAIR_THRESHOLD}): native {nat_ms} ms, numpy {np_ms} ms, "
+        f"{len(nat[0])} distinct pairs, keys, counts and word counts equal {counts_equal}; "
+        f"cal_pmi on the native counter {gnat_ms} ms, on numpy {gnp_ms} ms, graphs equal "
+        f"{graph_equal} ({g_nat.num_edges} edges); host times of the card's machine")
+    g = graph
+    recs = [{"id": f"nat{i}", "text": texts[(i * 37) % len(texts)]} for i in range(16)]
+    cfg = TextGraphConfig()
+    req_ids, req_lens, _, _ = encode_texts([r["text"] for r in recs], w2i, g, cfg)
+    all_ids, all_lens, _, _ = encode_texts(texts, w2i, g, cfg)
+    lines, eids_equal = [], True
+    for label, a, b in (("16-record request", req_ids, req_lens),
+                        (f"corpus of {len(texts)}", all_ids, all_lens)):
+        e_nat, t_nat = _ms(lambda: native.window_edge_ids(a, b, cfg.ngram, g.keys, g.vocab_size))
+        e_np, t_np = _ms(lambda: pmi.doc_window_edge_ids_numpy(a, b, cfg.ngram, g))
+        eids_equal &= np.array_equal(e_nat, e_np)
+        lines.append(f"{label}: native {t_nat} ms, numpy {t_np} ms, equal "
+                     f"{np.array_equal(e_nat, e_np)}, {int((e_nat > 0).sum())} edges found")
+    turns: dict = {"native": [], "numpy": []}
+    batches: dict = {}
+    for path in ("native", "numpy", "numpy", "native") * 3:
+        with (no_native if path == "numpy" else contextlib.nullcontext()):
+            batches[path], _ = pred._encode_host(recs)
+        turns[path].append(pred.last_timings["encode_text_ms"])
+    encode_equal = all(np.array_equal(batches["native"][k], batches["numpy"][k])
+                       for k in batches["native"])
+    log(f"phase 3: doc_window_edge_ids (ngram {cfg.ngram}) {'; '.join(lines)}; the 16-record "
+        f"request's encode_text_ms in turns: native {turns['native']} (median "
+        f"{statistics.median(turns['native'])}), numpy {turns['numpy']} (median "
+        f"{statistics.median(turns['numpy'])}), batches equal {encode_equal}; host times of "
+        f"the card's machine; {card_line()}")
+    if not (counts_equal and graph_equal and eids_equal and encode_equal):
+        raise SystemExit("phase 3: the native host preprocessing disagrees with numpy")
+
+
 def phase3(k1: dict) -> None:
     t0 = time.perf_counter()
     vocab, texts = synthetic_corpus()
@@ -530,6 +618,7 @@ def phase3(k1: dict) -> None:
     log(f"phase 3: warm() over buckets {pred.batch_buckets}: {time.perf_counter() - t0} s")
 
     k1["launches"] = serve(pred, texts, "fusion")["launches"]
+    phase3_native(vocab, texts, graph, pred)
 
     # one batch with K1 against the same forward with K1's plain version
     batch_np, _ = pred._encode_host([{"id": f"cmp{i}", "text": texts[i]} for i in range(16)])
@@ -2139,8 +2228,8 @@ def phase10_rank(workdir: str) -> None:
     batches, :func:`_global_batches`) on a ``(data 1, model 2)`` mesh over
     gloo, each rank on the whole global batch of 16 with its shards of the
     parameters; a checkpoint; then a 16-record ``Predictor(mesh=...)``
-    forward of the trained weights.  The results go to
-    ``<workdir>/rank<r>.pt``."""
+    forward of the trained weights, and the HTTP front end on the mesh (rank
+    0 serves, rank 1 follows).  The results go to ``<workdir>/rank<r>.pt``."""
     import torch.distributed as dist
 
     from mgnns_tpu_torch.graphs.pmi import PmiGraph
@@ -2241,9 +2330,75 @@ def phase10_rank(workdir: str) -> None:
     out.update(serve_ms=(time.perf_counter() - t0) * 1e3, served=served,
                k1_serve=edge_max.launches, serve_model_calls=sent["model"][0] - calls0,
                buckets=pred.batch_buckets)
+    # HTTP on the mesh: rank 0's front end hands each chunk to rank 1, which
+    # follows until rank 0's server shuts down; first the same records
+    # through predict on both ranks (SPMD), the mesh's own answers
+    from mgnns_tpu_torch.serving import MeshLink
+
+    out["http_in_process"] = pred.predict([r for recs in spec["http"].values() for r in recs])
+    link = MeshLink(pred)
+    edge_max.launches = 0
+    if link.leader:
+        out["http"] = _phase10_http(pred, link, spec["http"])
+    else:
+        t0 = time.perf_counter()
+        out["follow_chunks"] = link.follow()
+        out["follow_s"] = time.perf_counter() - t0
+    out.update(k1_http=edge_max.launches, http_chunks=link.chunks, http_headers=link.headers)
     pred.close()
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+def _phase10_http(pred: Predictor, link, requests: dict) -> dict:
+    """Rank 0 of phase 10: ``cli.serve``'s server and frontend around the
+    mesh Predictor and its link on loopback, 8 clients sending their 2
+    requests each at once, then ``shutdown()``, which sends rank 1 the stop
+    (bounded by a 120 s join)."""
+    import threading
+    import urllib.request
+
+    from mgnns_tpu_torch.cli import serve as cli_serve
+
+    args = cli_serve.build_parser().parse_args([
+        "--port", "0", "--image_backend", "synthetic", "--max_batch", str(pred.max_batch),
+        "--request_timeout", "300"])
+    server = cli_serve.make_server(args, pred, link)
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    host, port = server.server_address[:2]
+    answers: dict = {}
+    errors: list = []
+
+    def client(c):
+        try:
+            for k in range(2):
+                req = urllib.request.Request(
+                    f"http://{host}:{port}/predict", method="POST",
+                    data=json.dumps({"records": requests[(c, k)]}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    answers[(c, k)] = json.loads(r.read())["predictions"]
+        except Exception as e:  # reported by the parent; the phase fails on it
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    stats = server.frontend.stats()
+    t0 = time.perf_counter()
+    server.shutdown()  # the frontend closes: rank 1 gets the stop header
+    serving.join(120)
+    stop_s = time.perf_counter() - t0
+    server.server_close()
+    if serving.is_alive() or any(t.is_alive() for t in clients):
+        errors.append("the server or a client did not finish")
+    return {"answers": answers, "errors": errors, "wall": wall, "stats": stats,
+            "stop_s": stop_s, "payload_bytes": list(link.payload_bytes)}
 
 
 def phase10(setup: dict, p9: dict) -> None:
@@ -2256,8 +2411,12 @@ def phase10(setup: dict, p9: dict) -> None:
     spec, ref = p9["spec"], p9["ref"]
     vocab, graph, texts = setup["vocab"], setup["graph"], setup["texts"]
     records = _records(texts, P10_SERVE, 900, np.random.default_rng(10))
+    # 8 clients x 2 requests of 1-5 records for the mesh's HTTP front end
+    http = {(c, k): _records(texts, 1 + (c + 3 * k) % 5, 1000 + 10 * (2 * c + k),
+                             np.random.default_rng(11))
+            for c in range(8) for k in range(2)}
     workdir = tempfile.mkdtemp(prefix="mgnns_p10_")
-    torch.save(dict(spec, vocab=vocab, serve=records,
+    torch.save(dict(spec, vocab=vocab, serve=records, http=http,
                     graph={"vocab_size": graph.vocab_size, "keys": graph.keys,
                            "pmi": graph.pmi}), os.path.join(workdir, "phase10.pt"))
     t0 = time.perf_counter()
@@ -2284,6 +2443,8 @@ def phase10(setup: dict, p9: dict) -> None:
                     params=ref_params, batch_stats=ref_stats, consts=consts, cfg=cfg,
                     image_backend="synthetic", max_batch=TRAIN_BATCH, device="cuda")
     want = one.predict(records)
+    http_records = [r for recs in http.values() for r in recs]
+    http_want = one.predict(http_records)
     one.close()
     labels_equal = all([g["label"] for g in rk["served"]] == [w["label"] for w in want]
                        for rk in ranks)
@@ -2322,7 +2483,41 @@ def phase10(setup: dict, p9: dict) -> None:
             and prob_err <= 1e-5 and replicated_equal and ckpt_ok and pads
             and all(zero for _, zero in pads.values())):
         raise SystemExit("phase 10: the model axis disagrees with 1 rank")
+    phase10_http_checks(ranks, http, http_want)
     log(f"phase 10: {time.perf_counter() - t_phase} s; {card_line()}")
+
+
+def phase10_http_checks(ranks: list, http: dict, want: list) -> None:
+    """Phase 10's HTTP front end on the mesh: rank 0's answers against its
+    in-process ``Predictor(mesh=...).predict`` of the same records and one
+    device's (labels equal, probabilities within 1e-5), K1 once a chunk on
+    each rank, rank 1 following every chunk and stopped."""
+    lead, follower = ranks
+    h = lead["http"]
+    if h["errors"] or len(h["answers"]) != len(http):
+        raise SystemExit(f"phase 10: the mesh's HTTP clients failed: {h['errors']}")
+    got = [a for key in http for a in h["answers"][key]]
+    errs = {}
+    for name, ref in (("in-process mesh predict", lead["http_in_process"]),
+                      ("one device", want)):
+        if [g["label"] for g in got] != [w["label"] for w in ref]:
+            raise SystemExit(f"phase 10: HTTP labels on the mesh differ from the {name}'s")
+        errs[name] = max(abs(g["probs"][k] - w["probs"][k]) for g, w in zip(got, ref)
+                         for k in w["probs"])
+    chunks = lead["http_chunks"]
+    per_chunk = [rk["k1_http"] / max(1, rk["http_chunks"]) for rk in ranks]
+    log(f"phase 10: cli.serve's front end on the (1, 2) mesh over loopback: 8 clients x 2 "
+        f"requests ({len(got)} records) in {h['wall']} s; latency ms {h['stats'].get('latency_ms')} "
+        f"(p50/p99/max); {chunks} chunks, {lead['http_headers']} headers sent (the stop "
+        f"included), payload bytes a chunk {h['payload_bytes']}; rank 1 followed "
+        f"{follower['follow_chunks']} chunks and stopped {h['stop_s']} s after shutdown() "
+        f"(in follow() {follower['follow_s']} s); K1 launches a chunk {per_chunk} (ranks 0, 1); "
+        f"answers against the in-process mesh predict and one device: labels equal, max "
+        f"probability difference {errs} (tolerance 1e-5); {card_line()}")
+    if not (follower["follow_chunks"] == chunks >= 1 and lead["http_headers"] == chunks + 1
+            and per_chunk == [1.0, 1.0] and max(errs.values()) <= 1e-5):
+        raise SystemExit("phase 10: the mesh's HTTP front end disagrees or its ranks fell "
+                         "out of step")
 
 
 def phase9c(root: str) -> None:
@@ -2434,7 +2629,9 @@ def main() -> int:
                    "Engine(mesh=...) on 1 rank over NCCL, captured train and eval steps",
                    "torchrun cli.main --multihost --mesh_data 1",
                    "Engine(mesh=...) on a (1, 2) model axis over gloo, each rank's forward",
-                   "Predictor(mesh=...) on a (1, 2) model axis"]
+                   "Predictor(mesh=...) on a (1, 2) model axis",
+                   "cli.serve.make_server on a (1, 2) model axis (rank 0's front end and "
+                   "MeshLink, 2 gloo ranks)"]
     k2["paths"] = ["engine.train.Engine.train_step", "cli.main (text-only, fusion)",
                    "cli.main --init_from_reference",
                    "engine.graphs (captured train steps over device tables)",

@@ -72,12 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def make_mesh(args: argparse.Namespace):
+def make_mesh(args: argparse.Namespace, module: str = "mgnns_tpu_torch.cli.predict"):
     """The ``(mesh_data, mesh_model)`` mesh over the ranks torchrun started,
-    or None on one device; whether this process joined the group."""
+    or None on one device; whether this process joined the group.
+    ``module``: the CLI to name in the message that says how to start the
+    ranks (``cli.serve`` calls this too)."""
     if args.mesh_data * args.mesh_model <= 1:
         return None, False
-    if args.from_exported or args.export_model:
+    if args.from_exported or getattr(args, "export_model", None):
         raise SystemExit(LIVE_MODEL)
     import torch.distributed as dist
 
@@ -89,8 +91,7 @@ def make_mesh(args: argparse.Namespace):
     if not multihost.initialize(device=args.platform) or dist.get_world_size() != ranks:
         raise SystemExit(f"--mesh_data {args.mesh_data} x --mesh_model {args.mesh_model} needs "
                          f"a world of {ranks} ranks: start it with python -m "
-                         f"torch.distributed.run --nproc_per_node {ranks} -m "
-                         "mgnns_tpu_torch.cli.predict ...")
+                         f"torch.distributed.run --nproc_per_node {ranks} -m {module} ...")
     return create_mesh(args.mesh_data, args.mesh_model, device=args.platform), owned
 
 

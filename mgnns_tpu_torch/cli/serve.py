@@ -22,37 +22,32 @@ without a card) or ``cpu``.
 ``--from_exported <dir>`` serves an artifact of ``cli.predict
 --export_model`` (:mod:`mgnns_tpu_torch.export`) in place of a checkpoint.
 
-Not taken yet, rejected by name: ``--mesh_data`` / ``--mesh_model`` above 1.
-``Predictor(mesh=...)`` serves on a mesh (``cli.predict`` takes both flags),
-but an HTTP front end on several ranks needs rank 0 to broadcast each chunk
-to the follower ranks (``ROADMAP.md`` queue 1 item 6c).
+``--mesh_data D --mesh_model M`` serves on the ``D * M`` ranks that
+``torchrun`` starts (``Predictor(mesh=...)``, as ``cli.predict`` does; a mesh
+needs the live model, so ``--from_exported`` is refused).  Every rank loads
+the checkpoint and warms every bucket; rank 0 alone binds ``--host/--port``
+and runs the frontend, which hands each encoded chunk to the other ranks
+(:class:`mgnns_tpu_torch.serving.MeshLink`); they bind nothing and run each
+chunk with it.  ``server.shutdown()`` on rank 0, which SIGTERM or SIGINT
+calls (what ``torchrun`` sends its ranks when it stops), tells them to stop,
+and every rank returns 0.
 
 Usage::
 
     python -m mgnns_tpu_torch.cli.serve --data_root_path data \\
         --checkpoint checkpoint/mgnns_tpu --text_only --port 8080
     python -m mgnns_tpu_torch.cli.serve --from_exported artifact --port 8080
+    python -m torch.distributed.run --nproc_per_node 2 -m mgnns_tpu_torch.cli.serve \\
+        --mesh_model 2 --data_root_path data --checkpoint checkpoint/mgnns_tpu --port 8080
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-MESH_FRONTEND = ("serving HTTP on a mesh needs rank 0's front end to broadcast each chunk to "
-                 "the follower ranks: ROADMAP.md queue 1 item 6c (cli.predict takes "
-                 "--mesh_data/--mesh_model under torchrun)")
-
-
-def unported_flags(args: argparse.Namespace) -> list[str]:
-    """One message for each flag set in ``args`` that the port rejects,
-    naming the ``ROADMAP.md`` item that brings it."""
-    checks = (
-        ("--mesh_data", args.mesh_data != 1, MESH_FRONTEND),
-        ("--mesh_model", args.mesh_model != 1, MESH_FRONTEND),
-    )
-    return [f"{flag}: {why}" for flag, on, why in checks if on]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,8 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--platform", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="device to run on; 'cuda' raises when no card is present")
-    p.add_argument("--mesh_data", type=int, default=1, help="rejected above 1: item 6c")
-    p.add_argument("--mesh_model", type=int, default=1, help="rejected above 1: item 6c")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="split each batch over this many data positions (under torchrun; rank "
+                        "0 answers HTTP and hands each chunk to the other ranks)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="split the gather tables and wide projections over this many ranks "
+                        "(training's model-parallel rules; under torchrun)")
     return p
 
 
@@ -131,14 +130,22 @@ def make_handler(frontend, model_name: str, text_only: bool, request_timeout: fl
     return Handler
 
 
-def make_server(args) -> ThreadingHTTPServer:
-    """The HTTP server for ``args`` (apart from :func:`main` so tests can
-    drive it); the predictor is warm and the frontend running when it
-    returns.  ``server.frontend`` is the :class:`BatchingFrontend`."""
-    rejected = unported_flags(args)
-    if rejected:
-        raise SystemExit("not supported by the PyTorch port:\n  " + "\n  ".join(rejected))
-    from mgnns_tpu_torch.serving import BatchingFrontend, Predictor
+class Server(ThreadingHTTPServer):
+    """The HTTP server; ``frontend`` is its :class:`BatchingFrontend`."""
+
+    daemon_threads = True
+
+    def shutdown(self) -> None:
+        """Stop serving, then close the frontend: what is queued is
+        answered, and on a mesh the other ranks are told to stop."""
+        super().shutdown()
+        self.frontend.close()
+
+
+def load_predictor(args, mesh=None):
+    """The warm Predictor of ``args`` (every batch bucket run once, before
+    the first request); on ``mesh`` every rank calls it."""
+    from mgnns_tpu_torch.serving import Predictor
 
     if args.from_exported:
         from mgnns_tpu_torch.export import load_exported
@@ -146,7 +153,6 @@ def make_server(args) -> ThreadingHTTPServer:
         predictor = load_exported(args.from_exported, image_root=args.image_root,
                                   image_backend=args.image_backend, strict_images=False,
                                   device=args.platform)
-        model_name = args.from_exported
     else:
         if not args.checkpoint:
             raise SystemExit("--checkpoint is required (or pass --from_exported)")
@@ -154,23 +160,82 @@ def make_server(args) -> ThreadingHTTPServer:
             args.data_root_path, args.checkpoint, text_only=args.text_only,
             pmi_phase=args.pmi_phase, image_backend=args.image_backend,
             image_root=args.image_root, max_batch=args.max_batch, strict_images=False,
-            reference_ckpt=args.init_from_reference, device=args.platform)
-        model_name = args.checkpoint
-    predictor.warm()  # every batch bucket once, before the first request
-    frontend = BatchingFrontend(predictor, max_queue=args.max_queue)
-    handler = make_handler(frontend, model_name, predictor.text_only, args.request_timeout)
-    server = ThreadingHTTPServer((args.host, args.port), handler)
-    server.daemon_threads = True
+            reference_ckpt=args.init_from_reference, device=args.platform, mesh=mesh)
+    predictor.warm()
+    return predictor
+
+
+def make_server(args, predictor=None, link=None) -> Server:
+    """The HTTP server for ``args`` (apart from :func:`main` so tests can
+    drive it) around ``predictor`` (default: :func:`load_predictor` of
+    ``args``); the frontend is running when it returns.  ``link``: rank 0's
+    :class:`mgnns_tpu_torch.serving.MeshLink` on a mesh."""
+    from mgnns_tpu_torch.serving import BatchingFrontend
+
+    if predictor is None:
+        predictor = load_predictor(args)
+    frontend = BatchingFrontend(predictor, max_queue=args.max_queue, link=link)
+    handler = make_handler(frontend, args.from_exported or args.checkpoint,
+                           predictor.text_only, args.request_timeout)
+    server = Server((args.host, args.port), handler)
     server.frontend = frontend
     return server
 
 
-def main(argv=None) -> None:
-    server = make_server(build_parser().parse_args(argv))
+def _on_stop_signals(handler) -> None:
+    """``handler`` for SIGTERM and SIGINT (signals reach the main thread only)."""
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, handler)
+        signal.signal(signal.SIGINT, handler)
+
+
+def serve(server: Server) -> None:
+    """Serve until ``server.shutdown()``, which SIGTERM and SIGINT call, and
+    the frontend has closed."""
+    # shutdown() waits for serve_forever to return: another thread calls it
+    _on_stop_signals(lambda signum, frame: threading.Thread(target=server.shutdown).start())
     host, port = server.server_address[:2]
-    print(f"serving on http://{host}:{port}  (POST /predict, GET /healthz)")
+    print(f"serving on http://{host}:{port}  (POST /predict, GET /healthz)", flush=True)
     server.serve_forever()
+    server.frontend.close()  # returns once shutdown()'s close has finished
+    server.server_close()
+
+
+def main(argv=None) -> int:
+    from mgnns_tpu_torch.cli.predict import make_mesh
+
+    args = build_parser().parse_args(argv)
+    mesh, owned = make_mesh(args, "mgnns_tpu_torch.cli.serve")
+    if mesh is None:
+        server = make_server(args)
+        serve(server)
+        server.frontend.predictor.close()
+        return 0
+    import torch.distributed as dist
+
+    from mgnns_tpu_torch.serving import MeshLink
+
+    try:
+        predictor = load_predictor(args, mesh)
+        try:
+            link = MeshLink(predictor)
+            if link.leader:
+                server = make_server(args, predictor, link)
+                serve(server)
+                print(f"rank 0: stopped after {link.chunks} chunks", flush=True)
+            else:
+                # torchrun signals every rank when it stops: a follower waits
+                # for rank 0's stop instead (if rank 0 is gone, the wait fails)
+                _on_stop_signals(signal.SIG_IGN)
+                chunks = link.follow()
+                print(f"rank {dist.get_rank()}: stopped after {chunks} chunks", flush=True)
+        finally:
+            predictor.close()
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -1,6 +1,9 @@
 """PMI word-co-occurrence graph construction, vectorized and sparse.
 
-A copy of the JAX package's ``mgnns_tpu/graphs/pmi.py`` on its numpy paths.
+A copy of the JAX package's ``mgnns_tpu/graphs/pmi.py``: the pair counting
+and the window edge ids run on the native library
+(:mod:`mgnns_tpu_torch.native`) where the JAX module's do, on numpy
+otherwise, with the same arrays either way.
 
 Reproduces the math of reference ``utils/pmi.py:28-105`` without the O(V^2)
 dense matrices and Python loops:
@@ -32,6 +35,7 @@ from typing import Sequence
 
 import numpy as np
 
+from mgnns_tpu_torch import native
 from mgnns_tpu_torch.graphs.vocab import make_word_to_id, tokenize
 
 
@@ -104,31 +108,6 @@ def _corpus_to_ids(docs: list[list[str]], w2i: dict[str, int]) -> np.ndarray:
     return np.asarray(flat, dtype=np.int32).reshape(len(docs), -1)
 
 
-def pmi_pair_count(ids: np.ndarray, vocab_size: int, window: int):
-    """(sorted_keys, counts, word_counts) from an [N, L] padded id matrix
-    (-1 = OOV, 0 = PAD): unigram counts of in-vocab non-PAD tokens and the
-    windowed pair counts of reference ``utils/pmi.py:40-58``.  The numpy
-    counter of the JAX package's ``mgnns_tpu/native.py:pmi_pair_count``; its
-    C++ counter for very large corpora is not bound here yet."""
-    ids = np.ascontiguousarray(ids, np.int32)
-    L = ids.shape[1]
-    src_valid = ids > 0
-    wc = np.bincount(ids[src_valid].ravel(), minlength=vocab_size).astype(np.int64)
-    chunks = []
-    for o in range(-window, window):
-        if o == 0:
-            continue
-        if o > 0:
-            s, t = ids[:, : L - o], ids[:, o:]
-        else:
-            s, t = ids[:, -o:], ids[:, : L + o]
-        m = (s > 0) & (t >= 0)
-        chunks.append(s[m].astype(np.int64) * vocab_size + t[m].astype(np.int64))
-    allk = np.concatenate(chunks) if chunks else np.zeros((0,), np.int64)
-    keys, counts = np.unique(allk, return_counts=True)
-    return keys, counts.astype(np.int64), wc
-
-
 def cal_pmi(
     texts: Sequence[str],
     vocab: Sequence[str],
@@ -153,8 +132,9 @@ def cal_pmi(
     if ids.size == 0:
         return PmiGraph(V, np.zeros((0,), np.int64), np.zeros((0,), np.float32))
 
-    # Unigram + windowed pair counts (offsets o in [-window, window-1], o != 0)
-    pair_keys, pair_counts, word_count = pmi_pair_count(ids, V, window_size)
+    # Unigram + windowed pair counts (offsets o in [-window, window-1],
+    # o != 0), by the native counter for very large corpora, numpy otherwise
+    pair_keys, pair_counts, word_count = native.pmi_pair_count(ids, V, window_size)
 
     # Threshold (utils/pmi.py:59-67).
     keep = pair_counts >= min_cooccurrence
@@ -202,8 +182,19 @@ def doc_window_edge_ids(
 
     Returns:
       [N, L, 2*ngram+1] int32 edge ids (0 where invalid; validity masks are
-      recomputed on device from ``lengths``).
+      recomputed on device from ``lengths``), by the native library's binary
+      search when it is available (:func:`mgnns_tpu_torch.native.
+      window_edge_ids`), else :func:`doc_window_edge_ids_numpy`.
     """
+    if native.available():
+        return native.window_edge_ids(doc_ids, lengths, ngram, graph.keys, graph.vocab_size)
+    return doc_window_edge_ids_numpy(doc_ids, lengths, ngram, graph)
+
+
+def doc_window_edge_ids_numpy(doc_ids: np.ndarray, lengths: np.ndarray, ngram: int,
+                              graph: PmiGraph) -> np.ndarray:
+    """:func:`doc_window_edge_ids` in numpy: one :meth:`PmiGraph.lookup` a
+    window offset."""
     doc_ids = np.asarray(doc_ids)
     lengths = np.asarray(lengths)
     N, L = doc_ids.shape

@@ -1,4 +1,4 @@
-"""Build the package's CUDA sources into shared libraries loaded with ctypes.
+"""Build the package's native sources into shared libraries loaded with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/torch_ext/`` at the repository
@@ -7,6 +7,13 @@ and an unchanged one is loaded as it is, with nvcc's log kept beside it
 (``lib<name>-<hash>.log``).  Nothing is compiled at import:
 :func:`load` builds on first use, and :func:`build_all` starts one ``nvcc``
 per source at once.
+
+The host C++ of ``mgnns_tpu_torch/csrc/<name>.cpp`` (the native
+preprocessing, :mod:`mgnns_tpu_torch.native`) is built the same way by the
+host compiler (:func:`load_host`), apart from the CUDA sources: a machine
+with a C++ compiler and no ``nvcc`` builds it.  Its flags hold
+``-march=native``, so its hash also covers what that resolves to on this
+host, and a library built for another CPU is never loaded.
 """
 
 from __future__ import annotations
@@ -17,12 +24,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_ext")
 SOURCES = ("edge_max",)
+HOST_CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+# native/Makefile's flags
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,10 +44,13 @@ NVCC_FLAGS = (
 @dataclasses.dataclass
 class Library:
     lib: ctypes.CDLL
-    log: str  # nvcc's output (ptxas register / spill report), kept beside the .so
+    log: str  # the compiler's output (nvcc: ptxas register / spill report), kept beside the .so
+    seconds: float = 0.0  # compile time in this process; 0 when loaded as built before
 
 
 _loaded: dict[str, Library] = {}
+_host_loaded: dict[str, Library | None] = {}
+_host_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -78,12 +93,7 @@ def build_all(names=SOURCES) -> dict[str, Library]:
             if os.path.exists(tmp):
                 os.remove(tmp)
         else:
-            with open(f"{tmp}.log", "w") as f:
-                f.write(logs[name])
-            # atomic, the log first: a concurrent build never sees half a
-            # file, and a library on disk always has its log
-            os.replace(f"{tmp}.log", _log_path(so))
-            os.replace(tmp, so)
+            _install(tmp, so, logs[name])
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     for name in todo:
@@ -93,9 +103,70 @@ def build_all(names=SOURCES) -> dict[str, Library]:
     return {n: _loaded[n] for n in names}
 
 
+def _install(tmp: str, so: str, log: str) -> None:
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    # atomic, the log first: a concurrent build never sees half a file, and
+    # a library on disk always has its log
+    os.replace(f"{tmp}.log", _log_path(so))
+    os.replace(tmp, so)
+
+
 def _log_path(so: str) -> str:
     return so[:-len(".so")] + ".log"
 
 
 def load(name: str) -> ctypes.CDLL:
     return build_all((name,))[name].lib
+
+
+def _cxx() -> str | None:
+    """The host C++ compiler (``c++``, else ``g++``, on PATH), or None when
+    there is none."""
+    return shutil.which("c++") or shutil.which("g++")
+
+
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host C++ build failed: {' '.join(cmd)} exited with "
+                           f"{proc.returncode}\n{proc.stdout}")
+    return proc.stdout
+
+
+def load_host(name: str) -> Library | None:
+    """Build (at first use) and load ``csrc/<name>.cpp`` with the host
+    compiler and :data:`CXX_FLAGS`; None when no compiler is found.  A
+    compiler that fails raises with its output: a build that quietly gave
+    way to the numpy path would hide the native one from every check."""
+    with _host_lock:  # one build per process; other processes race by os.replace
+        if name in _host_loaded:
+            return _host_loaded[name]
+        cxx = _cxx()
+        if cxx is None:
+            _host_loaded[name] = None
+            return None
+        src = os.path.join(HOST_CSRC_DIR, f"{name}.cpp")
+        # what -march=native resolves to here: the target's ISA flags
+        target = _run([cxx, "-march=native", "-Q", "--help=target"])
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(
+                f.read() + " ".join(CXX_FLAGS).encode() + target.encode()).hexdigest()
+        so = os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+        seconds = 0.0
+        if not (os.path.exists(so) and os.path.exists(_log_path(so))):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            try:
+                log = _run([cxx, *CXX_FLAGS, "-o", tmp, src])
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise
+            seconds = time.perf_counter() - t0
+            _install(tmp, so, log)
+        with open(_log_path(so)) as f:
+            _host_loaded[name] = Library(ctypes.CDLL(so), f.read(), seconds)
+        return _host_loaded[name]

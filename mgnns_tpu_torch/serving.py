@@ -25,13 +25,18 @@ concurrent requests into device batches, in front of the HTTP server
 same whole weights and calls :meth:`Predictor.predict` with the same
 records (SPMD); the parameters split over ``'model'`` by the training
 rules, each bucket splits over ``'data'``, and the answers are gathered so
-that every rank returns the whole request.
+that every rank returns the whole request.  Behind HTTP
+(``cli.serve --mesh_data/--mesh_model``) only rank 0 takes requests: its
+:class:`BatchingFrontend` hands each encoded chunk to the other ranks
+through a :class:`MeshLink`, and they run it in the same order.
 """
 
 from __future__ import annotations
 
 import collections
+import datetime
 import json
+import logging
 import os
 import queue
 import threading
@@ -240,14 +245,16 @@ class Predictor:
 
     def _forward(self, batch_np: dict) -> torch.Tensor:
         """H2D copy + eval forward + softmax; returns device probs without
-        waiting for them.  On a mesh each data position runs its block of
-        the bucket's rows, and the blocks are gathered (a collective)."""
+        waiting for them.  ``batch_np``: :meth:`_encode_host`'s numpy arrays,
+        or tensors of the same shapes (on ``device`` they are not copied).
+        On a mesh each data position runs its block of the bucket's rows,
+        and the blocks are gathered (a collective)."""
         t0 = time.perf_counter()
         if self.data is not None and self.data.size > 1:
             rows = next(iter(batch_np.values())).shape[0] // self.data.size
             batch_np = {k: v[self.data.rank * rows:(self.data.rank + 1) * rows]
                         for k, v in batch_np.items()}
-        batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch_np.items()}
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch_np.items()}
         with torch.inference_mode():
             if self.forward_fn is not None:
                 probs = self.forward_fn(self.params, self.batch_stats, batch)
@@ -441,6 +448,10 @@ def _check_tree(template, tree, what: str) -> None:
         raise ValueError(f"{what} do not match the model's shapes: {bad[:5]}")
 
 
+# closes the frontend's queues: queued behind every request, it stops each stage
+_STOP = object()
+
+
 class BatchingFrontend:
     """Bounded-queue micro-batching around a :class:`Predictor`, in two
     pipeline stages (``mgnns_tpu/serving.py:426-670``):
@@ -463,14 +474,25 @@ class BatchingFrontend:
     forward instead of their sum.  A full request queue raises :class:`Busy`
     at once (HTTP 503 upstream) instead of letting latency grow.  Request
     latencies are kept in a ring buffer for :meth:`stats`' p50/p99.
+
+    On a mesh, rank 0's frontend takes a ``link`` (:class:`MeshLink`): the
+    device thread, the only thread of rank 0 that issues collectives, runs
+    each chunk through ``link.forward``, which first hands it to the
+    other ranks.  A chunk the frontend drops (its clients all gone, its
+    group's encode failed) is dropped before that, so the other ranks never
+    see it.  :meth:`close` finishes what is queued and, on a mesh, tells the
+    other ranks to stop.
     """
 
     class Busy(RuntimeError):
         pass
 
-    def __init__(self, predictor: Predictor, max_queue: int = 256):
+    def __init__(self, predictor: Predictor, max_queue: int = 256,
+                 link: "MeshLink | None" = None):
         self.predictor = predictor
         self.max_queue = max_queue
+        self.link = link
+        self._closed = False
         self._q: queue.Queue = queue.Queue(maxsize=max_queue)
         # encoded chunks awaiting the device; depth 2 = one chunk encoding
         # ahead while one waits, deeper only adds latency under overload
@@ -484,8 +506,8 @@ class BatchingFrontend:
         # wakes the coalescing encoder when a request arrives or an in-flight
         # chunk finishes (instead of polling the queue)
         self._wake = threading.Condition(self._lock)
-        self._encoder = threading.Thread(target=self._encode_loop, daemon=True)
-        self._worker = threading.Thread(target=self._device_loop, daemon=True)
+        self._encoder = threading.Thread(target=self._encode_loop, name="encode", daemon=True)
+        self._worker = threading.Thread(target=self._device_loop, name="device", daemon=True)
         self._encoder.start()
         self._worker.start()
 
@@ -500,6 +522,8 @@ class BatchingFrontend:
         ``timeout`` seconds."""
         if not records:
             return []  # zero chunks would otherwise never set ``done``
+        if self._closed:
+            raise RuntimeError("the frontend is closed")
         done = threading.Event()
         slot: dict = {}
         t0 = time.perf_counter()
@@ -526,6 +550,9 @@ class BatchingFrontend:
         while True:
             first = carry if carry is not None else self._q.get()
             carry = None
+            if first is _STOP:  # behind every request queued before close()
+                self._encoded_q.put(_STOP)
+                return
             # drop requests whose client already timed out: computing answers
             # nobody reads under overload keeps the queue saturated
             if first[1].get("abandoned"):
@@ -550,6 +577,9 @@ class BatchingFrontend:
                         # (submit / _item_done notify); the timeout is a safety net
                         self._wake.wait(timeout=0.05)
                     continue
+                if nxt is _STOP:
+                    carry = nxt  # after this group
+                    break
                 if nxt[1].get("abandoned"):
                     continue
                 if n + len(nxt[0]) > self.predictor.max_batch:
@@ -630,6 +660,12 @@ class BatchingFrontend:
                     continue
             else:
                 item = self._encoded_q.get()
+            if item is _STOP:
+                if pending is not None:
+                    self._finalize(pending)
+                if self.link is not None:
+                    self.link.stop()
+                return
             group, np_batch, n_real, acc = item
             if acc["failed"]:
                 self._item_done()
@@ -640,7 +676,8 @@ class BatchingFrontend:
                 self._item_done()
                 continue
             try:
-                probs_dev = pred._forward(np_batch)
+                probs_dev = (pred._forward(np_batch) if self.link is None
+                             else self.link.forward(np_batch, n_real))
             except Exception as e:
                 acc["failed"] = True
                 self._deliver_error(group, e)
@@ -649,6 +686,20 @@ class BatchingFrontend:
             if pending is not None:
                 self._finalize(pending)
             pending = (group, probs_dev, n_real, acc)
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Answer what is queued, then stop both threads (and, on a mesh,
+        the other ranks: the device thread's last act is ``link.stop()``).
+        Raises if they do not stop within ``timeout`` seconds; a second call
+        waits as the first does."""
+        with self._lock:
+            first, self._closed = not self._closed, True
+        if first:
+            self._q.put(_STOP)
+        for t in (self._encoder, self._worker):
+            t.join(timeout)
+            if t.is_alive():
+                raise RuntimeError(f"the frontend's {t.name} thread did not stop in {timeout} s")
 
     def stats(self) -> dict:
         """Requests answered, backlog, and the p50/p99/max latency in ms of
@@ -665,6 +716,124 @@ class BatchingFrontend:
                                  "p99": round(float(np.percentile(ms, 99)), 2),
                                  "max": round(float(ms.max()), 2)}
         return out
+
+
+class MeshLink:
+    """Rank 0's front end and the other ranks of a mesh, serving one chunk
+    at a time.
+
+    ``Predictor(mesh=...).predict`` is SPMD: every rank runs each chunk.
+    Behind HTTP only rank 0 gets the requests, so its
+    :class:`BatchingFrontend` runs each chunk through :meth:`forward`, which
+    broadcasts it from rank 0 before running ``Predictor._forward``; every
+    other rank sits in :meth:`follow`, which receives each chunk and runs the
+    same ``_forward`` (its data block, the model axis's collectives, the
+    gather), in the same order, and drops the probabilities.  Per chunk:
+
+    1. a header of :data:`HEADER` int64s, ``(op, rows, n_real, has_image)``,
+       over a CPU gloo group with a deadline of :data:`CONTROL_TIMEOUT`: a
+       follower waits in it for as long as no request comes, which NCCL's
+       watchdog (10 min) or gloo's default timeout (30 min) would end;
+    2. the encoded arrays (``ids``, ``lens``, ``mask``, ``eids`` and the
+       fusion model's ``image``) over the world group, the mesh's own (NCCL
+       on the card): one collective per dtype into device tensors, which the
+       follower feeds to ``_forward`` as they are.  Encoded arrays, not
+       records, so that only rank 0 tokenizes or opens an image (the images
+       may live on its node only), and every rank runs the same bits.
+
+    :meth:`stop` sends the header that ends :meth:`follow`.  Every rank of
+    the world constructs a link, in the same order (it makes a group).
+    """
+
+    FORWARD, STOP = 1, 0
+    HEADER = 4
+    CONTROL_TIMEOUT = datetime.timedelta(days=365)
+
+    def __init__(self, predictor: Predictor):
+        import torch.distributed as dist
+
+        from mgnns_tpu_torch.parallel.collectives import world_axis
+
+        self.predictor = predictor
+        self.world = world_axis(predictor.device)
+        self.control = dist.new_group(backend="gloo", timeout=self.CONTROL_TIMEOUT)
+        self.chunks = 0          # chunks this rank ran through the link
+        self.headers = 0         # headers sent (rank 0) or received
+        self.payload_bytes: list[int] = []  # each chunk's arrays
+
+    @property
+    def leader(self) -> bool:
+        return self.world.rank == 0
+
+    def _spec(self, rows: int, has_image: bool) -> dict:
+        """{field: (shape, dtype)} of a chunk of ``rows`` rows, as
+        ``Predictor._encode_host`` makes it."""
+        p = self.predictor
+        L, W = p.graph_cfg.max_len, 2 * p.graph_cfg.ngram + 1
+        spec = {"ids": ((rows, L), torch.int32), "lens": ((rows,), torch.int32),
+                "mask": ((rows, L), torch.float32), "eids": ((rows, L, W), torch.int32)}
+        if has_image:
+            spec["image"] = ((rows, p.image_size, p.image_size, 3), torch.uint8)
+        return spec
+
+    def _header(self, *fields: int) -> list[int]:
+        import torch.distributed as dist
+
+        h = torch.zeros(self.HEADER, dtype=torch.int64)
+        h[:len(fields)] = torch.tensor(fields, dtype=torch.int64)
+        dist.broadcast(h, src=0, group=self.control)
+        self.headers += 1
+        return h.tolist()
+
+    def _payload(self, tensors: dict) -> None:
+        from mgnns_tpu_torch.parallel.collectives import broadcast_
+
+        broadcast_(list(tensors.values()), self.world)
+        self.chunks += 1
+        self.payload_bytes.append(sum(t.numel() * t.element_size() for t in tensors.values()))
+
+    def forward(self, batch_np: dict, n_real: int) -> torch.Tensor:
+        """Rank 0: hand the chunk to every rank, then run it; the device
+        probabilities.  A chunk that does not match the spec raises before
+        anything is sent."""
+        rows = len(batch_np["ids"])
+        has_image = "image" in batch_np
+        spec = self._spec(rows, has_image)
+        if batch_np.keys() != spec.keys():
+            raise ValueError(f"chunk fields {sorted(batch_np)}, the mesh's {sorted(spec)}")
+        dev = self.predictor.device
+        tensors = {k: torch.as_tensor(np.ascontiguousarray(batch_np[k]), device=dev)
+                   for k in spec}
+        bad = {k: (tuple(t.shape), t.dtype) for k, t in tensors.items()
+               if (tuple(t.shape), t.dtype) != spec[k]}
+        if bad:
+            raise ValueError(f"chunk fields {bad} do not match the mesh's {spec}")
+        self._header(self.FORWARD, rows, n_real, int(has_image))
+        self._payload(tensors)
+        return self.predictor._forward(tensors)
+
+    def stop(self) -> None:
+        """Rank 0: end every other rank's :meth:`follow`."""
+        self._header(self.STOP)
+
+    def follow(self) -> int:
+        """Ranks > 0: run every chunk rank 0 sends until it says stop; the
+        number of chunks run.  A forward that raises raised on rank 0 too
+        (the same inputs): it is logged, and the loop goes on."""
+        dev = self.predictor.device
+        while True:
+            op, rows, n_real, has_image = self._header()
+            if op == self.STOP:
+                return self.chunks
+            tensors = {k: torch.empty(shape, dtype=dtype, device=dev)
+                       for k, (shape, dtype) in self._spec(rows, bool(has_image)).items()}
+            self._payload(tensors)
+            try:
+                self.predictor._forward(tensors)
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "rank %d: the forward of a %d-row chunk (%d real) failed",
+                    self.world.rank, rows, n_real)
 
 
 PREPROC_NPZ = "preproc.npz"

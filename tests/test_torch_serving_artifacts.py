@@ -194,18 +194,17 @@ def test_predict_cli_writes_the_jsonl_of_predict(runs, tmp_path):
     _assert_same_answers(got, want)
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh_data", "2"], "item 6c"),
-                                       (["--mesh_model", "2"], "item 6c")])
-def test_predict_cli_rejects_unported_flags_naming_their_item(flag, item):
-    """``cli.predict`` takes the mesh flags under torchrun
-    (tests/test_torch_model_axis.py): in a world of one process it says how
-    to start the ranks.  ``cli.serve`` still rejects them, naming the
-    ``ROADMAP.md`` item of a mesh front end."""
+@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--mesh_model", "2"]])
+def test_predict_cli_rejects_unported_flags_naming_their_item(flag):
+    """``cli.predict`` and ``cli.serve`` take the mesh flags under torchrun
+    (tests/test_torch_model_axis.py, tests/test_torch_serve_mesh.py): in a
+    world of one process each says how to start the ranks, naming itself."""
     with pytest.raises(SystemExit, match="needs a world of 2 ranks.*torch.distributed.run"):
         ppredict.main(["--platform", "cpu", "--checkpoint", "x", "--data_root_path", "x",
                        "--input", "x"] + flag)
-    msgs = pserve.unported_flags(pserve.build_parser().parse_args(flag))
-    assert len(msgs) == 1 and f"ROADMAP.md queue 1 {item}" in msgs[0]
+    with pytest.raises(SystemExit, match="needs a world of 2 ranks.*torch.distributed.run.*"
+                                         "-m mgnns_tpu_torch.cli.serve"):
+        pserve.main(["--platform", "cpu", "--checkpoint", "x", "--data_root_path", "x"] + flag)
 
 
 def test_cli_init_from_reference_loads_every_weight(runs, tmp_path):
