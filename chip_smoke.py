@@ -135,7 +135,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    ranks' in-process mesh ``predict`` and one device's (labels equal,
    probabilities within 1e-5), K1 once a chunk on each rank, and both ranks
    stopped by ``shutdown()``.  NCCL refuses two ranks on one card, so the
-   model axis at N > 1 runs over gloo only here.
+   model axis at N > 1 runs over gloo only here;
+11. the benchmark (``mgnns_tpu_torch.bench``, what ``bench_torch.py`` runs):
+   the card's bf16 peak measured once (at most 105% of the data sheet's
+   dense rate), then ``bench.run`` in text, full and train modes on 64
+   samples of the seeded synthetic corpus at B 32 / 32 / 16 with bf16
+   trunks: each prints one JSON line with ``bench.py``'s metric name, a
+   positive value and ``0 < mfu <= 1.05``; K1 once per forward (and K2 once
+   per train step) in the profiler's device events of one more epoch of
+   the headline path and in the wrapper counts of the timed eager forwards
+   and steps; the live captured eval epoch's predictions equal to the
+   device-cached eager epoch's.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -150,7 +160,6 @@ import io
 import json
 import math
 import os
-import pickle
 import random
 import re
 import socket
@@ -170,20 +179,20 @@ from mgnns_tpu_torch.data.dataset import TumblrDataset
 from mgnns_tpu_torch.data.loader import DeviceLoader
 from mgnns_tpu_torch.engine.metrics import confusion_init
 from mgnns_tpu_torch.engine.train import Engine, cross_entropy
-from mgnns_tpu_torch.graphs.cooccur import gen_A
 from mgnns_tpu_torch.graphs.pmi import cal_pmi
 from mgnns_tpu_torch.kernels import build, edge_max
 from mgnns_tpu_torch.models.mgnns import mgnns_apply, mgnns_init
 from mgnns_tpu_torch.models.text_only import text_model_apply, text_model_init
 from mgnns_tpu_torch.nn import resnet
 from mgnns_tpu_torch.serving import Predictor
+from mgnns_tpu_torch.tools._bench_util import (
+    cli_tree, device_events, device_kernels, flagship_data, fusion_apply_fn,
+)
 from mgnns_tpu_torch.utils import tree_leaves, tree_map, tree_paths, tree_to, tree_unflatten
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-VOCAB_SIZE = 20153          # ModelConfig.vocab_size
-N_DOCS = 10_000
 REQUEST_SIZES = (1, 5, 16, 37)
 REPEATS = 3
 # the mangled names of K1's (float4, bulk copy) and K2's g=4 instantiations
@@ -263,9 +272,11 @@ def k1_bound_ms(lens: torch.Tensor, L: int, D: int, ngram: int) -> tuple[float, 
 def phase2_k1() -> dict:
     max_err = 0.0
     # the model's shape, a small odd one, the smallest and largest windows at
-    # full width, and D = 33, which takes the scalar path
+    # full width, D = 33, which takes the scalar path, and the batches the
+    # bench launches it at (phase 11's 32, the text mode's 64, the full
+    # mode's 128)
     for shape in ((16, 100, 300, 4), (3, 7, 5, 2), (16, 100, 300, 0), (16, 100, 300, 16),
-                  (4, 20, 33, 4)):
+                  (4, 20, 33, 4), (32, 100, 300, 4), (64, 100, 300, 4), (128, 100, 300, 4)):
         emb, w, lens = k1_inputs(*shape, seed=sum(shape))
         got = edge_max.window_max_aggregate(emb, w, lens, shape[3])
         torch.cuda.synchronize()
@@ -377,24 +388,6 @@ def phase2b_k2() -> dict:
 # ------------------------------------------------------------------ phase 3
 
 
-def synthetic_corpus(seed: int = 0):
-    """10k documents of 5-90 tokens, Zipf-like over the 20,151 non-special
-    words of a 20,153-word vocabulary (PAD, UNK first)."""
-    r = np.random.default_rng(seed)
-    vocab = ["PAD", "UNK"] + [f"w{i}" for i in range(VOCAB_SIZE - 2)]
-    p = 1.0 / np.arange(1, VOCAB_SIZE - 1) ** 1.1
-    lens = r.integers(5, 91, N_DOCS)
-    toks = r.choice(VOCAB_SIZE - 2, size=int(lens.sum()), p=p / p.sum())
-    words = np.array(vocab[2:])[toks]
-    cuts = np.cumsum(lens)[:-1]
-    return vocab, [" ".join(d) for d in np.split(words, cuts)]
-
-
-def cooccurrence(C: int, r) -> dict:
-    return {"nums": r.integers(1, 200, C).astype(float),
-            "adj": r.integers(0, 60, (C, C)).astype(float)}
-
-
 def serve(pred: Predictor, texts: list[str], label: str) -> dict:
     """Answer each request size REPEATS times with the launch count reset
     just before and read just after; returns latencies and counts."""
@@ -461,14 +454,6 @@ def local_memory_bytes(report: str) -> list[int]:
     if m is None:
         raise SystemExit(f"no stack/spill line in ptxas's report:\n{report}")
     return [int(x) for x in m.groups()]
-
-
-def device_kernels(prof):
-    """Kernel events of a profile averaged by name (the GPU side of the
-    model's and the engine's named ranges is left out)."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(("mgnns.", "engine.", "ProfilerStep"))]
 
 
 def profile_forward(pred: Predictor, batch_np: dict) -> None:
@@ -587,22 +572,18 @@ def phase3_native(vocab: list[str], texts: list[str], graph, pred: Predictor) ->
 
 def phase3(k1: dict) -> None:
     t0 = time.perf_counter()
-    vocab, texts = synthetic_corpus()
-    graph = cal_pmi(texts, vocab, window_size=6, min_cooccurrence=2)
+    # the bench's data: the seeded corpus, its PMI graph and the label constants
+    data = flagship_data("synthetic")
+    vocab, texts, graph, c = data.vocab, data.ds.text.texts, data.graph, data.consts_np
     log(f"phase 3: corpus {len(texts)} docs, vocab {len(vocab)}, PMI edges "
         f"{graph.num_edges} ({time.perf_counter() - t0} s on the host)")
-    r = np.random.default_rng(1)
     cfg = ModelConfig(edges_num=graph.num_edges)
-    object_A, _ = gen_A(80, cfg.object_t, cooccurrence(80, r), cfg.gama)
-    place_A, _ = gen_A(365, cfg.place_t, cooccurrence(365, r), cfg.gama)
+    object_A, place_A = c["object_A"], c["place_A"]
     t0 = time.perf_counter()
     params, stats, consts = mgnns_init(
-        cfg, num_edges=graph.num_edges,
-        label_embedding=r.standard_normal((7, 300)).astype(np.float32),
-        object_A=object_A, place_A=place_A,
-        object_inp=r.standard_normal((80, 300)).astype(np.float32),
-        place_inp=r.standard_normal((365, 300)).astype(np.float32),
-        seed=0, device="cuda")
+        cfg, num_edges=graph.num_edges, label_embedding=c["label_embedding"],
+        object_A=object_A, place_A=place_A, object_inp=c["object_inp"],
+        place_inp=c["place_inp"], seed=0, device="cuda")
     numels: list[int] = []
     tree_map(lambda t: numels.append(t.numel()), params)
     n_params = sum(numels)
@@ -678,7 +659,7 @@ def phase3(k1: dict) -> None:
     serve(tpred, texts, "text-only")
     tpred.close()
     return {"vocab": vocab, "texts": texts, "graph": graph, "cfg": cfg, "object_A": object_A,
-            "place_A": place_A, "r": r}
+            "place_A": place_A}
 
 
 @contextlib.contextmanager
@@ -853,11 +834,7 @@ def phase4(setup: dict, k1: dict, k2: dict) -> dict:
     val_ds = TumblrDataset(data_cfg, graph_cfg, "val", vocab, graph, image_size=cfg.image_size,
                            records=_records(texts, N_VAL, N_TRAIN, r))
 
-    def apply_fn(p, bs, batch, *, train, generator):
-        logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=cfg, train=train,
-                                          generator=generator)
-        return logits, new_bs, aux.get("head_diversity", 0.0)
-
+    apply_fn = fusion_apply_fn(cfg, consts)
     steps = N_TRAIN // TRAIN_BATCH
     engine = Engine(apply_fn, params, stats, num_classes=len(LABELS), optimizer_algo="adam",
                     steps_per_epoch=steps, checkpoint_dir=os.path.join(workdir, "ckpt"),
@@ -1121,42 +1098,6 @@ def phase4b(p4: dict) -> None:
 
 
 # ------------------------------------------------------------------ phase 5
-
-
-def cli_tree(root: str) -> None:
-    """A 3-class data tree whose words separate the classes (as
-    tests/test_mvsa.py builds it), seeded GloVe pickles, and the adjacency
-    pickles and vocabulary written by the port's ``prepare``."""
-    from mgnns_tpu_torch.cli import prepare
-
-    r = np.random.default_rng(0)
-    pools = {"negative": ["bad", "sad", "awful", "hate", "terrible"],
-             "neutral": ["table", "walk", "city", "day", "photo"],
-             "positive": ["good", "great", "happy", "love", "wonderful"]}
-    os.makedirs(os.path.join(root, "all_anno_json"))
-    os.makedirs(os.path.join(root, "glove"))
-    with open(os.path.join(root, "label.json"), "w") as f:
-        json.dump({name: i for i, name in enumerate(pools)}, f)
-    rows = []
-    for i in range(90):
-        label = list(pools)[i % 3]
-        words = list(r.choice(pools[label], 5)) + list(r.choice(pools["neutral"], 2))
-        rows.append({"id": f"c{i}", "text": " ".join(words), "image": f"img/{i}.jpg",
-                     "label": label, "objects": [int(x) for x in r.integers(0, 80, 3)],
-                     "places": [int(x) for x in r.integers(0, 365, 2)]})
-    for phase in ("train", "val", "test"):
-        with open(os.path.join(root, "all_anno_json", f"{phase}_all_anno.json"), "w") as f:
-            f.writelines(json.dumps(rec) + "\n" for rec in rows)
-    for rel, shape in (("glove/object_glove_word2vec.pkl", (80, 300)),
-                       ("glove/place_glove_word2vec.pkl", (365, 300)),
-                       ("tumblr_label_glove.pkl", (3, 300))):
-        with open(os.path.join(root, rel), "wb") as f:
-            pickle.dump(r.standard_normal(shape).astype(np.float32), f)
-    for key, n, name in (("objects", 80, "tumblr_objects_adj.pkl"),
-                         ("places", 365, "tumblr_resnet50_places_adj.pkl")):
-        prepare.main(["adj", "--data_root_path", root, "--key", key, "--num_classes", str(n),
-                      "--output", os.path.join(root, "adj", name)])
-    prepare.main(["vocab", "--data_root_path", root, "--text_min_count", "1"])
 
 
 def run_cli(root: str, name: str, extra: list[str], forwards: int, steps: int,
@@ -1623,26 +1564,11 @@ def deterministic_cudnn():
 
 
 def _profiled_epoch(run) -> dict:
-    """Device busy time, kernel launches and K1 / K2 launches of ``run()``
-    (an epoch), from the profiler's device events of its second call (a
-    first, warm-up cycle: events at the very start of a trace can be lost)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    got: dict = {}
-    torch.cuda.synchronize()
-    # the events of a cycle are read when it ends: the profiler clears them
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: got.update(kernels=device_kernels(p))) as prof:
-        for _ in range(2):
-            out = run()
-            torch.cuda.synchronize()
-            prof.step()
-    kernels = got["kernels"]
-    count = lambda name: sum(e.count for e in kernels if name in e.key)  # noqa: E731
-    return {"out": out, "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
-            "launches": sum(e.count for e in kernels), "k1": count("edge_max_fwd_kernel"),
-            "k2": count("edge_max_bwd_kernel"), "nccl": _nccl_kernels(kernels)}
+    """Device busy time, kernel launches and K1 / K2 / NCCL launches of
+    ``run()`` (an epoch), from the profiler's device events of its second
+    call (:func:`mgnns_tpu_torch.tools._bench_util.device_events`)."""
+    return device_events(run, {"k1": "edge_max_fwd_kernel", "k2": "edge_max_bwd_kernel",
+                               "nccl": "nccl"})
 
 
 @contextlib.contextmanager
@@ -1665,10 +1591,6 @@ def pin_before_fault_3_4():
         yield
 
 
-def _nccl_kernels(prof_kernels) -> int:
-    return sum(e.count for e in prof_kernels if "nccl" in e.key.lower())
-
-
 def _phase8_dtype(setup: dict, workdir: str, dtype: str, mesh) -> dict:
     """Graph path, loop path and (phase 9b) the graph path of a 1-rank NCCL
     mesh engine from the same weights, in turns: losses and parameters
@@ -1689,11 +1611,7 @@ def _phase8_dtype(setup: dict, workdir: str, dtype: str, mesh) -> dict:
     val_ds = TumblrDataset(data_cfg, TextGraphConfig(), "val", vocab, graph,
                            image_size=cfg.image_size, records=_records(texts, P8_VAL, 600, r))
 
-    def apply_fn(p, bs, batch, *, train, generator, axis=None):
-        logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=cfg, train=train,
-                                          generator=generator, axis=axis)
-        return logits, new_bs, aux.get("head_diversity", 0.0)
-
+    apply_fn = fusion_apply_fn(cfg, consts)
     steps = P8_TRAIN // TRAIN_BATCH
     kw = dict(num_classes=len(LABELS), steps_per_epoch=steps, aux_loss_weight=0.1, device="cuda")
     engines = {"graph": Engine(apply_fn, params, stats, **kw),
@@ -1964,13 +1882,7 @@ def _phase9_model(spec: dict):
     cfg = ModelConfig(vocab_size=spec["vocab_size"], edges_num=spec["num_edges"])
     params, stats, consts = mgnns_init(cfg, num_edges=spec["num_edges"], seed=9, device="cuda",
                                        **spec["inputs"])
-
-    def apply_fn(p, bs, batch, *, train, generator, axis=None, model=None):
-        logits, new_bs, aux = mgnns_apply(p, bs, consts, batch, cfg=cfg, train=train,
-                                          generator=generator, axis=axis, model=model)
-        return logits, new_bs, aux.get("head_diversity", 0.0)
-
-    return apply_fn, params, stats, consts, cfg
+    return fusion_apply_fn(cfg, consts), params, stats, consts, cfg
 
 
 # Adam at lr 1e-7: its first update is the gradient's sign, so where a
@@ -2563,6 +2475,63 @@ def phase9c(root: str) -> None:
     log(f"phase 9c: {time.perf_counter() - t_phase} s; {card_line()}")
 
 
+# ----------------------------------------------------------------- phase 11
+
+P11_SAMPLES = 64
+P11_BATCH = {"text": 32, "full": 32, "train": 16}
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device", "data", "flops_per_sample",
+              "peak_tflops", "mfu")
+
+
+def phase11() -> None:
+    """The benchmark (``mgnns_tpu_torch.bench``, what ``bench_torch.py``
+    runs) in its three modes at 64 synthetic samples (see the module's
+    docstring)."""
+    from mgnns_tpu_torch import bench
+    from mgnns_tpu_torch.tools import _bench_util
+
+    t_phase = time.perf_counter()
+    peak = _bench_util.measured_bf16_peak()
+    log(f"phase 11: measured bf16 peak {peak} TFLOP/s ({time.perf_counter() - t_phase} s; the "
+        f"data sheet's dense rate {_bench_util.BF16_DATASHEET_TFLOPS}); {card_line()}")
+    data = _bench_util.flagship_data("synthetic", n_records=P11_SAMPLES)
+    failed = []
+    for mode, B in P11_BATCH.items():
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            line = bench.run(mode, batch_size=B, data=data, peak_tflops=peak, trace=True,
+                             t_start=time.time())
+        printed = buf.getvalue().splitlines()
+        log(f"phase 11: bench {mode} at B={B} ({time.perf_counter() - t0} s): {printed[-1]}")
+        tr, n = line["trace"], line["launches"]
+        problems = [
+            len(printed) != 1 or json.loads(printed[0]) != line,
+            any(k not in line for k in BENCH_KEYS), line["metric"] != bench.METRICS[mode],
+            not line["value"] > 0, not 0 < line["mfu"] <= 1.05,
+            line["peak_tflops"] > 1.05 * _bench_util.BF16_DATASHEET_TFLOPS,
+            line["device"]["name"] != torch.cuda.get_device_name(0),
+            line["data"] != "synthetic", tr["k1_per"] != 1.0]
+        if mode == "train":
+            problems += [tr["k2_per"] != 1.0, not line["epoch_fused"],
+                         not n["k1_timed"] == n["k2_timed"] == n["timed_steps"],
+                         not line["value_step_microbench"] > 0,
+                         line["config"]["compute_dtype"] != "bfloat16"]
+        else:
+            problems += [n["k1_timed"] != n["timed_forwards"]]
+        if mode == "full":
+            problems += [line["live_preds_differ_from_cached"] != 0,
+                         not line["live_pipeline_fused"],
+                         not all(line[k] > 0 for k in ("value_device_cached", "value_live_streaming",
+                                                        "value_live_per_batch_upload")),
+                         line["config"]["compute_dtype"] != "bfloat16"]
+        if any(problems):
+            failed.append(f"{mode}: checks {[i for i, p in enumerate(problems) if p]} failed")
+    log(f"phase 11: {time.perf_counter() - t_phase} s; {card_line()}")
+    if failed:
+        raise SystemExit("phase 11: " + "; ".join(failed))
+
+
 def _pred_rows(out: str) -> list[str]:
     files = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(out, "pred")) for f in fs]
     if len(files) != 1:
@@ -2615,6 +2584,7 @@ def main() -> int:
     p9 = phase9a(setup)
     phase9c(root)
     phase10(setup, p9)
+    phase11()
 
     log(f"total {time.perf_counter() - t_start} s")
     log(card_line())
@@ -2631,7 +2601,9 @@ def main() -> int:
                    "Engine(mesh=...) on a (1, 2) model axis over gloo, each rank's forward",
                    "Predictor(mesh=...) on a (1, 2) model axis",
                    "cli.serve.make_server on a (1, 2) model axis (rank 0's front end and "
-                   "MeshLink, 2 gloo ranks)"]
+                   "MeshLink, 2 gloo ranks)",
+                   "bench.run text (eager, cached batches), full (captured eval over tables, "
+                   "and eager), train (captured steps over tables, and eager)"]
     k2["paths"] = ["engine.train.Engine.train_step", "cli.main (text-only, fusion)",
                    "cli.main --init_from_reference",
                    "engine.graphs (captured train steps over device tables)",
@@ -2639,7 +2611,8 @@ def main() -> int:
                    "Engine(mesh=...) on 2 ranks over gloo, each rank's backward",
                    "Engine(mesh=...) on 1 rank over NCCL, captured train steps",
                    "torchrun cli.main --multihost --mesh_data 1",
-                   "Engine(mesh=...) on a (1, 2) model axis over gloo, each rank's backward"]
+                   "Engine(mesh=...) on a (1, 2) model axis over gloo, each rank's backward",
+                   "bench.run train (captured steps over tables, and eager)"]
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -30,22 +30,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join("build", "captured_after_ranks"))
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
-    import numpy as np
-
     import chip_smoke as S
-    from mgnns_tpu_torch.config import ModelConfig
-    from mgnns_tpu_torch.graphs.cooccur import gen_A
-    from mgnns_tpu_torch.graphs.pmi import cal_pmi
 
     os.makedirs(args.out, exist_ok=True)
-    vocab, texts = S.synthetic_corpus()
-    graph = cal_pmi(texts, vocab, window_size=6, min_cooccurrence=2)
-    r = np.random.default_rng(1)
-    cfg = ModelConfig(edges_num=graph.num_edges)
-    object_A, _ = gen_A(80, cfg.object_t, S.cooccurrence(80, r), cfg.gama)
-    place_A, _ = gen_A(365, cfg.place_t, S.cooccurrence(365, r), cfg.gama)
-    setup = {"vocab": vocab, "texts": texts, "graph": graph, "object_A": object_A,
-             "place_A": place_A}
+    data = S.flagship_data("synthetic")  # phase 3's data
+    setup = {"vocab": data.vocab, "texts": data.ds.text.texts, "graph": data.graph,
+             "object_A": data.consts_np["object_A"], "place_A": data.consts_np["place_A"]}
     runs = []
     for i in range(args.runs):
         t0 = time.perf_counter()

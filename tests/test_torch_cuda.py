@@ -1,13 +1,16 @@
 """The port on the card: each CUDA kernel against its plain version, a
 forward and a train step on the card against the same on the CPU, the
 kernels' launch counts across a train epoch, a ResNet trunk on the card
-against the CPU under the package's pinned float32 conv precision, and the
-fusion model at bf16 against float32.
+against the CPU under the package's pinned float32 conv precision, the
+fusion model at bf16 against float32, and the benchmark's modes on the card
+(K1 and K2 in every forward and step, the measured bf16 peak).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 those are absent: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 on a machine with an NVIDIA GPU.  Without a card every test here skips.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -534,3 +537,61 @@ def test_restore_after_capture_replays_the_restored_trajectory(cuda_device, dete
     assert again["capture_seconds"] > 0
     np.testing.assert_array_equal(again["losses"], second)
     assert _scale_errors(engine._state_tensors(), params) <= 1e-6
+
+
+@pytest.fixture(scope="module")
+def bench_peak():
+    """The card's measured bf16 peak, once for the benchmark's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from mgnns_tpu_torch.tools import _bench_util
+
+    return _bench_util.measured_bf16_peak()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["text", "full", "train"])
+def test_bench_modes_launch_the_kernels_on_card(cuda_device, bench_peak, mode, capsys):
+    """``bench.run`` at tiny widths on the card: one JSON line with a share
+    of the measured peak in (0, 1.05], K1 once per forward (and K2 once per
+    train step) in the profiler's device events of the headline path and in
+    the wrapper counts of the timed eager forwards and steps, and the
+    captured eval epoch's predictions equal to the eager epoch's."""
+    from mgnns_tpu_torch import bench
+    from mgnns_tpu_torch.config import TextGraphConfig
+    from mgnns_tpu_torch.tools import _bench_util
+
+    assert 0 < bench_peak <= 1.05 * _bench_util.BF16_DATASHEET_TFLOPS
+    data = _bench_util.flagship_data("synthetic", n_records=8, image_size=64,
+                                     graph_cfg=TextGraphConfig(max_len=16), label_classes=(5, 6))
+    out = bench.run(mode, batch_size=4, data=data, peak_tflops=bench_peak, trace=True)
+    assert capsys.readouterr().out.splitlines() == [json.dumps(out)]
+    assert out["value"] > 0 and 0 < out["mfu"] <= 1.05
+    assert out["device"]["name"] == torch.cuda.get_device_name(0)
+    assert out["trace"]["k1_per"] == 1.0, out["trace"]
+    n = out["launches"]
+    if mode == "train":
+        assert out["trace"]["k2_per"] == 1.0 and out["epoch_fused"], out
+        assert n["k1_timed"] == n["k2_timed"] == n["timed_steps"], n
+    else:
+        assert n["k1_timed"] == n["timed_forwards"], n
+    if mode == "full":
+        assert out["live_preds_differ_from_cached"] == 0 and out["live_pipeline_fused"], out
+
+
+@pytest.mark.cuda
+def test_bench_torch_runs_in_a_fresh_process(cuda_device):
+    """``python bench_torch.py`` as a user starts it: a new process, text
+    mode, 64 samples; its last line is the JSON line, on the card."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, MGNNS_BENCH_MODE="text", MGNNS_BENCH_SAMPLES="64")
+    r = subprocess.run([sys.executable, "bench_torch.py"], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.splitlines()[-1])
+    assert out["metric"] == "text_channel_eval_samples_per_sec_per_chip" and out["value"] > 0
+    assert out["device"]["name"] == torch.cuda.get_device_name(0) and 0 < out["mfu"] <= 1.05

@@ -41,6 +41,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "bench_torch.py")
 
 
 @pytest.mark.parametrize("path", sorted(os.path.relpath(p, ROOT) for p in _sources()))
