@@ -15,9 +15,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    (g=4), which must use no local memory;
 2. K1 against its plain PyTorch version on the card, exactly, at the model's
    shape, a small odd one, g=0 and g=16 at full width and D=33 (the scalar
-   path); kernel, plain and bound times, and the time of a pass that only
-   writes K1's output (the floor of a kernel of that size);
-2b. K2 against its plain backward the same way, and at g=0 and g=16:
+   path), the bench's and the eval ladder's batches (32 to 512) and the dry
+   run's (1 and 2 rows of L=16); kernel, plain and bound times, and the time
+   of a pass that only writes K1's output (the floor of a kernel of that
+   size);
+2b. K2 against its plain backward the same way, at g=0 and g=16 and at the
+   dry run's shapes:
    ``d_emb`` exactly, ``d_w`` within 1e-5 of scale (its sum over D runs in
    another order), the constant-input tie case exactly; kernel and plain
    times;
@@ -72,9 +75,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    request within 1e-5 of the live ``Predictor`` with K1 once per forward of
    the exported program; the 16-record forward of the live and the exported
    fusion model timed in turns and profiled once each (device busy, kernel
-   launches, host ops by self time); ``cli.predict --from_exported`` in a fresh
-   process within 1e-5; a text-only model exported on the CPU and served on
-   the card (K1 counted); ``cli.serve --from_exported`` over loopback;
+   launches, host ops by self time); ``cli.predict --from_exported`` of the
+   text-only artifact in a fresh process within 1e-5; a text-only model
+   exported on the CPU and served on the card (K1 counted); ``cli.serve
+   --from_exported`` of the fusion artifact over loopback;
 8. device-resident training through captured steps: the full-width fusion
    model (phase 3's vocabulary and label graphs, dropout 0.5, Adam, batch
    16) trains 64 records from device tables (``DeviceLoader(device_text=
@@ -90,9 +94,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    witness); then the paths in turns (loop, graph, mesh, mesh, graph, loop)
    for the per-step wall time, one profiled epoch of each captured path for
    the device busy time, idle share, launches, NCCL kernels, and K1 and K2
-   once per replay; capture seconds and peak memory; at float32 the
-   captured and the loop step in turns under the pin and under the pin as
-   it stood before fault 3.4's repair (what the repair costs); last
+   once per replay; capture seconds and peak memory; last
    ``cli.main --device_text --device_images --cache_eval_batches
    --profile_dir`` on phase 5's tree for 2 epochs at bf16, which must print
    its budget line, run every epoch through captured steps and leave a
@@ -145,7 +147,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    per train step) in the profiler's device events of one more epoch of
    the headline path and in the wrapper counts of the timed eager forwards
    and steps; the live captured eval epoch's predictions equal to the
-   device-cached eager epoch's.
+   device-cached eager epoch's;
+12. the entry surface (``mgnns_tpu_torch.entry``, the counterpart of
+   ``__graft_entry__.py``) and the last measuring tools: ``entry()``'s
+   flagship forward on cuda:0 (448 px, L=100, bf16 trunks, B=2), finite
+   ``[2, 7]`` logits within 1e-5 of scale of the same forward with K1's
+   plain version and K1 launched once; ``dryrun_multichip(2)``, 2 gloo
+   ranks sharing cuda:0 (geometries (2, 1) and (1, 2): each sharded SGD
+   step against one device from the same state, the eval epoch from device
+   tables, the sharded checkpoint's round trip, the bf16 forward and step),
+   K1 and K2 launched on each rank; then ``tools.warmup_breakdown``,
+   ``tools.full_split_fused_eval`` and ``tools.eval_batch_ladder`` (B 32
+   and 64) on 64 synthetic records, each printing its JSON line with
+   positive rates, the full split's epochs fused.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -246,7 +260,9 @@ def k1_inputs(B, L, D, ngram, seed):
     emb = torch.randn(B, L, D, generator=g, device="cuda")
     w = torch.randn(B, L, W, generator=g, device="cuda")
     lens = torch.randint(0, L + 1, (B,), generator=g, device="cuda", dtype=torch.int32)
-    lens[0], lens[1], lens[-1] = 0, 1, L
+    for row, n in ((0, 0), (1, 1), (B - 1, L)):  # a batch of 1 keeps only the full row
+        if row < B:
+            lens[row] = n
     w[:, ::3, 0] = 0.0
     if ngram > 0:
         emb[:, 2, :] = emb[:, 0, :]      # row 1 sees rows 0 and 2 with equal weights
@@ -272,11 +288,13 @@ def k1_bound_ms(lens: torch.Tensor, L: int, D: int, ngram: int) -> tuple[float, 
 def phase2_k1() -> dict:
     max_err = 0.0
     # the model's shape, a small odd one, the smallest and largest windows at
-    # full width, D = 33, which takes the scalar path, and the batches the
-    # bench launches it at (phase 11's 32, the text mode's 64, the full
-    # mode's 128)
+    # full width, D = 33, which takes the scalar path, the batches the bench
+    # and the eval ladder launch it at (phase 11's 32, the text mode's 64,
+    # the full mode's 128, the ladder's 256 and 512), and the dry run's
+    # (phase 12: a data-axis rank's 1 row and the whole batch of 2, L = 16)
     for shape in ((16, 100, 300, 4), (3, 7, 5, 2), (16, 100, 300, 0), (16, 100, 300, 16),
-                  (4, 20, 33, 4), (32, 100, 300, 4), (64, 100, 300, 4), (128, 100, 300, 4)):
+                  (4, 20, 33, 4), (32, 100, 300, 4), (64, 100, 300, 4), (128, 100, 300, 4),
+                  (256, 100, 300, 4), (512, 100, 300, 4), (1, 16, 300, 4), (2, 16, 300, 4)):
         emb, w, lens = k1_inputs(*shape, seed=sum(shape))
         got = edge_max.window_max_aggregate(emb, w, lens, shape[3])
         torch.cuda.synchronize()
@@ -334,9 +352,11 @@ def k2_bound_ms(lens: torch.Tensor, L: int, D: int, ngram: int) -> tuple[float, 
 
 def phase2b_k2() -> dict:
     max_err = 0.0
-    # the model's shape (g=4), a small odd one, and the smallest and largest
-    # windows the kernel instantiates
-    for shape in ((16, 100, 300, 4), (3, 7, 5, 2), (16, 100, 300, 0), (16, 100, 300, 16)):
+    # the model's shape (g=4), a small odd one, the smallest and largest
+    # windows the kernel instantiates, and the dry run's (phase 12: a
+    # data-axis rank's 1 row and the whole batch of 2, L = 16)
+    for shape in ((16, 100, 300, 4), (3, 7, 5, 2), (16, 100, 300, 0), (16, 100, 300, 16),
+                  (1, 16, 300, 4), (2, 16, 300, 4)):
         emb, w, lens = k1_inputs(*shape, seed=sum(shape) + 1)
         up = torch.randn(emb.shape, generator=torch.Generator(device="cuda").manual_seed(7),
                          device="cuda")
@@ -1428,9 +1448,10 @@ def _export_and_load(live: Predictor, out_dir: str, label: str, records: list[di
 
 def phase7(root: str, k1: dict) -> None:
     """Phase 5's checkpoints exported and served again on the card:
-    ``load_exported`` in this process, ``cli.predict --from_exported`` in a
-    fresh one, a text-only model exported on the CPU and served on the card,
-    and ``cli.serve --from_exported`` over loopback."""
+    ``load_exported`` in this process, ``cli.predict --from_exported`` of the
+    text-only artifact in a fresh one, a text-only model exported on the CPU
+    and served on the card, and ``cli.serve --from_exported`` of the fusion
+    artifact over loopback."""
     import threading
     import urllib.request
 
@@ -1460,18 +1481,20 @@ def phase7(root: str, k1: dict) -> None:
     _profile_forwards({"live": live, "exported": pred}, batch_np)
     pred.close()
     text_live = Predictor.from_engine_artifacts(root, text_ckpt, text_only=True, **common)
-    text_pred, text_want = _export_and_load(text_live, os.path.join(out_root, "text"),
-                                            "text-only", records)
+    text_dir = os.path.join(out_root, "text")
+    text_pred, text_want = _export_and_load(text_live, text_dir, "text-only", records)
     text_pred.close()
 
-    # 3. the predict CLI in a fresh process on the fusion artifact
+    # 3. the predict CLI in a fresh process on the text-only artifact (the
+    # fusion artifact is loaded in this process above and by cli.serve below;
+    # a fresh process loading it again took 43-61 s of the card budget)
     src, dst = os.path.join(out_root, "requests.jsonl"), os.path.join(out_root, "answers.jsonl")
     with open(src, "w") as f:
         f.writelines(json.dumps(r) + "\n" for r in records)
     edge_max.launches = 0
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "mgnns_tpu_torch.cli.predict", "--from_exported", fusion_dir,
+        [sys.executable, "-m", "mgnns_tpu_torch.cli.predict", "--from_exported", text_dir,
          "--image_backend", "synthetic", "--input", src, "--output", dst],
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
         timeout=600)
@@ -1482,11 +1505,11 @@ def phase7(root: str, k1: dict) -> None:
         lines = [json.loads(line) for line in f]
     if [x["id"] for x in lines] != [r["id"] for r in records]:
         raise SystemExit("phase 7: cli.predict --from_exported answered other ids")
-    diff = _check_answers("cli.predict --from_exported vs live", lines, want, 1e-5,
+    diff = _check_answers("cli.predict --from_exported vs live", lines, text_want, 1e-5,
                           "phase 7")
-    log(f"phase 7: cli.predict --from_exported in a fresh process: {cli_s} s of command, labels "
-        f"equal, probabilities max |diff| {diff} against the live Predictor (tolerance 1e-5); "
-        f"K1 launches in this process {edge_max.launches}")
+    log(f"phase 7: cli.predict --from_exported (text-only) in a fresh process: {cli_s} s of "
+        f"command, labels equal, probabilities max |diff| {diff} against the live Predictor "
+        f"(tolerance 1e-5); K1 launches in this process {edge_max.launches}")
 
     # 4. the text-only model exported on the CPU, served on the card
     cpu_live = Predictor.from_engine_artifacts(root, text_ckpt, text_only=True,
@@ -1569,26 +1592,6 @@ def _profiled_epoch(run) -> dict:
     call (:func:`mgnns_tpu_torch.tools._bench_util.device_events`)."""
     return device_events(run, {"k1": "edge_max_fwd_kernel", "k2": "edge_max_bwd_kernel",
                                "nccl": "nccl"})
-
-
-@contextlib.contextmanager
-def pin_before_fault_3_4():
-    """The trunk convs' pin as it stood before fault 3.4 was repaired:
-    IEEE float32 only, cuDNN's algorithms left as the caller has them (the
-    default ones here), for timing the repair's cost."""
-    conv = torch.backends.cudnn.conv
-
-    @contextlib.contextmanager
-    def old_pin():
-        saved = conv.fp32_precision
-        conv.fp32_precision = "ieee"
-        try:
-            yield
-        finally:
-            conv.fp32_precision = saved
-
-    with mock.patch.object(resnet, "ieee_float32_convs", old_pin):
-        yield
 
 
 def _phase8_dtype(setup: dict, workdir: str, dtype: str, mesh) -> dict:
@@ -1716,20 +1719,6 @@ def _phase8_dtype(setup: dict, workdir: str, dtype: str, mesh) -> dict:
             "launches_per_forward": prof["launches"] / nb,
             "nccl_per_forward": prof["nccl"] / nb, "k1_per_forward": prof["k1"] / nb}
 
-    # (c) float32: what the repair of fault 3.4 costs, in turns: the captured
-    # step and the loop step under the pin with cuDNN's deterministic
-    # algorithms (now) and under the pin before the repair
-    if dtype == "float32":
-        pin_walls: dict = {}
-        for path, pin in (("loop", "new"), ("graph", "new"), ("graph", "old"), ("loop", "old"),
-                          ("loop", "old"), ("graph", "old"), ("graph", "new"), ("loop", "new")):
-            ctx = pin_before_fault_3_4() if pin == "old" else contextlib.nullcontext()
-            engines["graph"]._graphs.clear()  # a graph keeps its capture's algorithms
-            with ctx:
-                out = engines[path].train_epoch(loaders[path][0])
-            pin_walls.setdefault(f"{path}_{pin}", []).append(out["epoch_seconds"] / steps * 1e3)
-        res["pin_cost"] = {k: {"wall_ms_per_step": statistics.median(v), "walls": v}
-                           for k, v in pin_walls.items()}
     return res
 
 
@@ -1779,10 +1768,6 @@ def phase8(setup: dict, root: str) -> None:
             f"loss {res['eval_loss']}")
         for key in ("train_graph", "train_loop", "eval_graph", "eval_loop"):
             log(f"phase 8 {dtype}: {key}: {res[key]}; {card_line()}")
-        if "pin_cost" in res:
-            log(f"phase 8 {dtype}: the cost of fault 3.4's repair, per-step wall in turns "
-                f"(new = the pin with cuDNN's deterministic algorithms, old = the pin before "
-                f"the repair): {res['pin_cost']}; {card_line()}")
         c = res["mesh_vs_graph"]
         log(f"phase 9b {dtype}: the 1-rank NCCL mesh engine's captured step vs phase 8's "
             f"captured step from the same state, one epoch of 4 steps: bit-equal {c['equal']}; "
@@ -2532,6 +2517,90 @@ def phase11() -> None:
         raise SystemExit("phase 11: " + "; ".join(failed))
 
 
+# ----------------------------------------------------------------- phase 12
+
+P12_SAMPLES = 64
+P12_ENV = {"WB_BATCH": "32", "FSE_BATCH": "32", "EVAL_LADDER": "32,64", "WB_PIPELINED": "0",
+           "MGNNS_COLD": "0"}
+
+
+def phase12() -> dict:
+    """The entry surface (``mgnns_tpu_torch.entry``) and the last measuring
+    tools at a small size (see the module's docstring).  Returns the K1 and
+    K2 wrapper counts of each path."""
+    from mgnns_tpu_torch import entry
+    from mgnns_tpu_torch.tools import (
+        _bench_util, eval_batch_ladder, full_split_fused_eval, warmup_breakdown,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the dry run's ranks share this card with this process
+    fn, args = entry.entry()
+    edge_max.launches = 0
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    k1_entry = edge_max.launches
+    with mock.patch.object(edge_max, "_launch", edge_max.window_max_aggregate_plain):
+        plain = fn(*args)
+    err = float((logits - plain).abs().max() / plain.abs().max().clamp_min(1e-30))
+    log(f"phase 12: entry() on cuda:0: logits {tuple(logits.shape)} {logits.dtype} "
+        f"{logits.float().cpu().numpy().tolist()}; against K1's plain version {err} of scale; "
+        f"K1 launches in the forward {k1_entry}")
+    if not (tuple(logits.shape) == (2, 7) and bool(torch.isfinite(logits).all())
+            and err <= 1e-5 and k1_entry == 1):
+        raise SystemExit("phase 12: entry()'s forward failed its checks")
+    del fn, args, logits, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(2)
+    shown = {k: dry[k] for k in ("losses", "parity", "eval", "checkpoint", "bf16", "launches")}
+    log(f"phase 12: dryrun_multichip(2), 2 gloo ranks on cuda:0, {time.perf_counter() - t0} s: "
+        f"{json.dumps(shown)}")
+    if not all(r["k1"] > 0 and r["k2"] > 0 for r in dry["launches"]):
+        raise SystemExit("phase 12: a dry-run rank launched no K1 or no K2")
+
+    data = _bench_util.flagship_data("synthetic", n_records=P12_SAMPLES)
+    tools = {}
+    with tempfile.TemporaryDirectory(prefix="mgnns_p12_") as results, \
+            mock.patch.dict(os.environ, P12_ENV), \
+            mock.patch.object(_bench_util, "RESULTS_DIR", results):
+        for name, tool in (("warmup_breakdown", warmup_breakdown),
+                           ("full_split_fused_eval", full_split_fused_eval),
+                           ("eval_batch_ladder", eval_batch_ladder)):
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out = tool.main([], data=data)
+            printed = buf.getvalue().splitlines()
+            log(f"phase 12: {name} ({time.perf_counter() - t0} s): {printed[-1]}")
+            if json.loads(printed[-1]) != out:
+                raise SystemExit(f"phase 12: {name} printed another line than it returned")
+            tools[name] = out
+    wb, fse, lad = (tools[k] for k in ("warmup_breakdown", "full_split_fused_eval",
+                                       "eval_batch_ladder"))
+    problems = [
+        not (wb["fused"] and wb["samples_per_sec"] > 0 and wb["upload_mb_per_s"] > 0
+             and wb["h2d_probe_mb_per_s"] > 0 and wb["n_samples"] == P12_SAMPLES
+             and wb["launches"]["k1"] > 0),
+        not (fse["fused"] and fse["first_epoch_fused"] and fse["samples_per_sec"] > 0
+             and fse["n_samples"] == P12_SAMPLES and fse["launches"]["k1"] > 0),
+        not ([r["batch"] for r in lad["rungs"]] == [32, 64]
+             and all(r.get("samples_per_sec", 0) > 0 and 0 < r["pct_of_peak"] <= 105
+                     for r in lad["rungs"]) and lad["launches"]["k1"] > 0),
+    ]
+    log(f"phase 12: {time.perf_counter() - t_phase} s; {card_line()}")
+    if any(problems):
+        raise SystemExit(f"phase 12: tool checks {[i for i, p in enumerate(problems) if p]} "
+                         "failed")
+    return {"entry": {"k1": k1_entry},
+            "dryrun_multichip(2) ranks": [{"k1": r["k1"], "k2": r["k2"]}
+                                          for r in dry["launches"]],
+            "tools": {k: v["launches"]["k1"] for k, v in tools.items()}}
+
+
 def _pred_rows(out: str) -> list[str]:
     files = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(out, "pred")) for f in fs]
     if len(files) != 1:
@@ -2585,6 +2654,7 @@ def main() -> int:
     phase9c(root)
     phase10(setup, p9)
     phase11()
+    p12 = phase12()
 
     log(f"total {time.perf_counter() - t_start} s")
     log(card_line())
@@ -2603,7 +2673,11 @@ def main() -> int:
                    "cli.serve.make_server on a (1, 2) model axis (rank 0's front end and "
                    "MeshLink, 2 gloo ranks)",
                    "bench.run text (eager, cached batches), full (captured eval over tables, "
-                   "and eager), train (captured steps over tables, and eager)"]
+                   "and eager), train (captured steps over tables, and eager)",
+                   "entry.entry (the flagship forward at production shapes)",
+                   "entry.dryrun_multichip (2 gloo ranks on cuda:0, each rank's forwards)",
+                   "tools.full_split_fused_eval, tools.eval_batch_ladder, "
+                   "tools.warmup_breakdown (captured eval over tables)"]
     k2["paths"] = ["engine.train.Engine.train_step", "cli.main (text-only, fusion)",
                    "cli.main --init_from_reference",
                    "engine.graphs (captured train steps over device tables)",
@@ -2612,7 +2686,13 @@ def main() -> int:
                    "Engine(mesh=...) on 1 rank over NCCL, captured train steps",
                    "torchrun cli.main --multihost --mesh_data 1",
                    "Engine(mesh=...) on a (1, 2) model axis over gloo, each rank's backward",
-                   "bench.run train (captured steps over tables, and eager)"]
+                   "bench.run train (captured steps over tables, and eager)",
+                   "entry.dryrun_multichip (2 gloo ranks on cuda:0, each rank's train steps)"]
+    # phase 12's paths, each counted from 0 (replays of a captured step are
+    # not counted by the wrappers)
+    k1["launches_phase12"] = p12
+    k2["launches_phase12"] = {"dryrun_multichip(2) ranks": [r["k2"] for r in
+                                                            p12["dryrun_multichip(2) ranks"]]}
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -216,10 +216,10 @@ def _text(data, B, dev, model_kw, t_start, trace):
 
 def _full(data, B, dev, model_kw, t_start, trace):
     from mgnns_tpu_torch.data.loader import DeviceLoader
-    from mgnns_tpu_torch.engine.train import Engine
 
     ds = data.ds
-    model = U.flagship_model(data, device=dev, **model_kw)
+    live = U.live_eval(data, device=dev, **model_kw)
+    model, eng = live.model, live.engine
     forward = lambda b: eval_logits(model, b)  # noqa: E731
 
     # diagnostic: the eager forward over device-cached batches (the ceiling)
@@ -232,10 +232,7 @@ def _full(data, B, dev, model_kw, t_start, trace):
     counts = {"timed_forwards": len(cached), "k1_timed": edge_max.launches - before}
 
     # the headline: tables and the captured eval step replayed over the plan
-    eng = Engine(model.apply_fn, model.params, model.bstats, num_classes=ds.num_classes,
-                 steps_per_epoch=1, eval_only=True, device=dev)
-    live_loader = DeviceLoader(ds, B, shuffle=False, num_threads=8, device_images=True,
-                               device_text=True, device=dev)
+    live_loader = live.loader(B)
     t0 = time.perf_counter()
     eng.eval_epoch(live_loader)  # warm-up: table upload, capture
     warm_s = time.perf_counter() - t0

@@ -18,7 +18,8 @@ DeviceLoader``, with its names and behaviour:
 - the per-batch [B] vectors ``weight``, ``label`` and ``sample_index`` stay
   host numpy, so epoch accounting never waits on the device;
 - ``device_text`` / ``device_images`` keep the split's text tensors and
-  labels, and its pixels as a flattened uint8 ``[N, H*W*3]`` table, on the
+  labels, and its pixels as a flattened ``[N, H*W*3]`` table of the
+  dataset's pixel dtype (uint8, or float32 normalized pixels), on the
   device, uploaded once per dataset and shared by every loader over it;
   batches then gather those rows on the device by sample index;
 - when every input is in tables, :meth:`DeviceLoader.epoch_plan` describes
@@ -209,8 +210,9 @@ class DeviceLoader:
         return cache[key]
 
     def _ensure_image_table(self, chunk_rows: int = 128) -> tuple[torch.Tensor, tuple]:
-        """(the split's pixels, of this rank's rows under a plan, as a uint8
-        [N, H*W*3] device table, (H, W, 3)).  The pool decodes chunk k+1
+        """(the split's pixels, of this rank's rows under a plan, as an
+        [N, H*W*3] device table of the dataset's pixel dtype (uint8 raw
+        pixels, or float32 normalized ones), (H, W, 3)).  The pool decodes chunk k+1
         while chunk k is copied in, so the host holds about two chunks of
         pixels."""
         key = self._table_key("image")
@@ -220,7 +222,8 @@ class DeviceLoader:
             rows = np.arange(len(self.ds)) if rows is None else rows
             N = len(rows)
             probe = self.ds.load_image(int(rows[0]))
-            table = torch.empty((N, probe.size), dtype=torch.uint8, device=self.device)
+            table = torch.empty((N, probe.size), dtype=torch.from_numpy(probe).dtype,
+                                device=self.device)
             chunks = [rows[s:s + chunk_rows] for s in range(0, N, chunk_rows)]
             with ThreadPoolExecutor(self.num_threads) as pool:
                 ahead = [pool.submit(self.ds.load_image, i) for i in chunks[0]]

@@ -53,6 +53,7 @@ has no whole-epoch program to split.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -160,9 +161,20 @@ class StepGraphs:
         for gen in generators():
             # a plain Generator over the same state: the graph takes no subclass
             graph.register_generator_state(gen.graphsafe_get_state())
-        with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                              capture_error_mode="thread_local"):
-            body()
+        # a dropped engine is a reference cycle (it and its StepGraphs) that
+        # holds CUDA graphs; the collector freeing one during a capture runs
+        # the graph's reset, which the capturing stream does not permit, and
+        # the capture is invalidated (fault 3.6).  Collect before, not during.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                body()
+        finally:
+            if collecting:
+                gc.enable()
         return graph
 
     def _run(self, steps: _PlanSteps, body_for, phase_of, generators, before_step,

@@ -32,6 +32,9 @@ import torch
 from mgnns_tpu_torch.config import DataConfig, ModelConfig, TextGraphConfig
 from mgnns_tpu_torch.utils import resolve_device
 
+# where the measuring tools write their JSON lines (the JAX tools' results/r5/)
+RESULTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "results", "torch")
 # dense bf16 tensor-core rate of the H100 SXM (NVIDIA data sheet), TFLOP/s
 BF16_DATASHEET_TFLOPS = 989.4
 VOCAB_SIZE = 20153          # ModelConfig.vocab_size
@@ -99,6 +102,28 @@ def device_info(device: torch.device) -> dict:
     except (OSError, subprocess.SubprocessError):
         name, power = torch.cuda.get_device_name(index), None
     return {"name": name, "power_limit": power}
+
+
+def tool_device(argv, description: str) -> torch.device:
+    """The device of a measuring tool from its command line: ``cuda:0``,
+    which raises without a card, unless ``--platform cpu``."""
+    import argparse
+
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    return resolve_device("cuda:0" if p.parse_args(argv).platform == "cuda" else "cpu")
+
+
+def write_result(name: str, out: dict) -> str:
+    """Write a tool's result to ``RESULTS_DIR/<name>.json``, print it as one
+    JSON line, and return the path."""
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    path = os.path.join(RESULTS_DIR, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=2)
+    print(json.dumps(out), flush=True)
+    return path
 
 
 # idle seconds around each profiled run.  Without them a profiled captured
@@ -279,6 +304,29 @@ def flagship_model(data: SimpleNamespace, *, device="cuda", seed: int = 0,
         place_inp=c["place_inp"], seed=seed, device=device)
     return SimpleNamespace(cfg=cfg, params=params, bstats=bstats, consts=consts,
                            apply_fn=fusion_apply_fn(cfg, consts))
+
+
+def live_eval(data: SimpleNamespace, *, device="cuda", **cfg_overrides) -> SimpleNamespace:
+    """The eval headline's program over ``data``'s split: ``model``
+    (:func:`flagship_model`), ``engine`` (``Engine(eval_only=True)`` on its
+    weights) and ``loader(B)``, a ``DeviceLoader`` of the split in batches
+    of ``B`` from device tables (``device_images``, ``device_text``).  An
+    epoch of ``engine.eval_epoch(loader(B))`` builds the tables and captures
+    the eval step at its first call and replays it over the epoch plan
+    after."""
+    from mgnns_tpu_torch.data.loader import DeviceLoader
+    from mgnns_tpu_torch.engine.train import Engine
+
+    model = flagship_model(data, device=device, **cfg_overrides)
+    engine = Engine(model.apply_fn, model.params, model.bstats,
+                    num_classes=data.ds.num_classes, steps_per_epoch=1, eval_only=True,
+                    device=device)
+
+    def loader(B: int):
+        return DeviceLoader(data.ds, B, shuffle=False, num_threads=8, device_images=True,
+                            device_text=True, device=device)
+
+    return SimpleNamespace(model=model, engine=engine, loader=loader)
 
 
 # ------------------------------------------------------------------ trees

@@ -323,10 +323,13 @@ def no_cuda():
         pytest.skip("a card is present: the CUDA default does not raise")
 
 
-@pytest.mark.parametrize("entry", ["bench.main", "bench_torch.py", "roofline", "bench_serving"])
+@pytest.mark.parametrize("entry", ["bench.main", "bench_torch.py", "roofline", "bench_serving",
+                                   "entry.entry", "entry.dryrun_multichip",
+                                   "full_split_fused_eval", "eval_batch_ladder",
+                                   "warmup_breakdown"])
 def test_entry_points_raise_without_a_card(no_cuda, entry, monkeypatch):
-    """Without ``platform="cpu"`` the bench and its tools run on the card,
-    and raise where there is none, before any work."""
+    """Without ``platform="cpu"`` the bench, its tools and the entry surface
+    run on the card, and raise where there is none, before any work."""
     monkeypatch.setenv("MGNNS_BENCH_MODE", "text")
     monkeypatch.delenv("MGNNS_BENCH_PLATFORM", raising=False)
     if entry == "bench_torch.py":
@@ -335,7 +338,15 @@ def test_entry_points_raise_without_a_card(no_cuda, entry, monkeypatch):
         assert r.returncode != 0 and "torch.cuda.is_available() is False" in r.stderr
         assert r.stdout == ""
         return
+    from mgnns_tpu_torch import entry as entry_mod
+    from mgnns_tpu_torch.tools import eval_batch_ladder, full_split_fused_eval, warmup_breakdown
+
     fn = {"bench.main": bench.main, "roofline": roofline.main,
-          "bench_serving": bench_serving.main}[entry]
+          "bench_serving": bench_serving.main,
+          "entry.entry": lambda argv: entry_mod.entry(),
+          "entry.dryrun_multichip": lambda argv: entry_mod.dryrun_multichip(2),
+          "full_split_fused_eval": full_split_fused_eval.main,
+          "eval_batch_ladder": eval_batch_ladder.main,
+          "warmup_breakdown": warmup_breakdown.main}[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         fn([])
