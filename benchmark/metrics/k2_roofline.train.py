@@ -1,0 +1,8 @@
+"""K2's share of its roofline in the traced training epoch."""
+
+from benchmark import flops as F
+from benchmark import readers as R
+
+
+def read(ctx):
+    return R.roofline(ctx, R.K2_KERNEL, F.k2_least_seconds)
