@@ -1,0 +1,9 @@
+"""Share of the published bf16 peak that the trunks' convolutions reach in
+the image stage of the traced eval steps: their closed-form forward FLOPs
+over the stage's device seconds (image_ms.eval)."""
+
+from benchmark import marks as M
+
+
+def read(ctx):
+    return M.image_mfu(ctx, grads=False)

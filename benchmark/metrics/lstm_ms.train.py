@@ -1,0 +1,10 @@
+"""Device milliseconds per step of the BiLSTM's stage (``mgnns.lstm``, with
+the embedding lookup), forward and backward (to the next mark after its
+``.bwd`` mark), from its marks in the traced training epoch's replays, idle
+gaps included."""
+
+from benchmark import marks as M
+
+
+def read(ctx):
+    return M.stage_ms(ctx, M.LSTM)

@@ -188,6 +188,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from mgnns_tpu_torch import tracing
 from mgnns_tpu_torch.config import DataConfig, ModelConfig, TextGraphConfig
 from mgnns_tpu_torch.data.dataset import TumblrDataset
 from mgnns_tpu_torch.data.loader import DeviceLoader
@@ -436,8 +437,23 @@ def serve(pred: Predictor, texts: list[str], label: str) -> dict:
         log(f"phase 3: {label} {n}-record request latency ms {lat[n]} "
             f"(median {statistics.median(lat[n])})")
     log(f"phase 3: {label} K1 launches {launches} for {forwards} forwards; "
-        f"peak device memory {peak} bytes; last chunk stages {pred.last_timings}; {card_line()}")
+        f"peak device memory {peak} bytes; last chunk stages {last_chunk_stages_ms()}; "
+        f"{card_line()}")
     return {"launches": launches, "forwards": forwards}
+
+
+def span_ms(span: tracing.Span) -> float:
+    return (span.end_ns - span.start_ns) / 1e6
+
+
+def last_chunk_stages_ms() -> dict:
+    """Milliseconds of each serving span of the last chunk read back."""
+    done = tracing.spans("serving.readback")
+    if not done:
+        return {}
+    chunk = done[-1].attrs.get("chunk")
+    return {s.name: span_ms(s) for s in tracing.spans("serving.")
+            if s.attrs.get("chunk") == chunk}
 
 
 def kernel_us(fn, name: str) -> float:
@@ -578,7 +594,7 @@ def phase3_native(vocab: list[str], texts: list[str], graph, pred: Predictor) ->
     for path in ("native", "numpy", "numpy", "native") * 3:
         with (no_native if path == "numpy" else contextlib.nullcontext()):
             batches[path], _ = pred._encode_host(recs)
-        turns[path].append(pred.last_timings["encode_text_ms"])
+        turns[path].append(span_ms(tracing.spans("serving.encode_text")[-1]))
     encode_equal = all(np.array_equal(batches["native"][k], batches["numpy"][k])
                        for k in batches["native"])
     log(f"phase 3: doc_window_edge_ids (ngram {cfg.ngram}) {'; '.join(lines)}; the 16-record "

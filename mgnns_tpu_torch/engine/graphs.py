@@ -49,6 +49,15 @@ through a device step counter, which it increments.
 The JAX engine's segment ladder and memory guard, which split an epoch
 program that XLA could not compile, have no counterpart: one captured step
 has no whole-epoch program to split.
+
+Tracing (:mod:`mgnns_tpu_torch.tracing`): an epoch's host work is spans,
+``graphs.plan_load`` (the plan's buffers), ``graphs.replay`` (``step``, the
+plan row), ``graphs.readback`` (the losses, predictions and confusion
+matrix), inside the engine's ``engine.epoch``; ``graphs.capture`` (``train``,
+``shape``, the plan's ``[nb, B]``) spans the warm-up steps and the capture.
+The step's own ranges (``engine.*``, ``mgnns.*``) are recorded at the
+capture only, never in a replay; its stage marks are kernels of the graph,
+so every replay shows them in the device trace.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import time
 import numpy as np
 import torch
 
+from mgnns_tpu_torch import tracing
 from mgnns_tpu_torch.engine import metrics as M
 from mgnns_tpu_torch.nn.core import derive_seed
 
@@ -83,6 +93,7 @@ class _PlanSteps:
         self.cm = M.confusion_init(num_classes, device)
         self.graphs: dict = {}
         self.state = state  # the engine's tensors the graphs read and write
+        self.train = train
 
     def buffers(self) -> list[torch.Tensor]:
         return [t for t in (self.losses, self.preds, self.row, self.cm) if t is not None]
@@ -135,7 +146,8 @@ class StepGraphs:
         if key not in self._plans:
             self._plans[key] = _PlanSteps(plan, eng.num_classes, eng.device, train, state)
         steps = self._plans[key]
-        steps.load(plan)
+        with tracing.span("graphs.plan_load"):
+            steps.load(plan)
         return steps
 
     def _capture(self, steps: _PlanSteps, body, generators) -> torch.cuda.CUDAGraph:
@@ -184,16 +196,19 @@ class StepGraphs:
         capture_s = 0.0
         axis = self.engine.axis
         capture = self.engine.device.type == "cuda" and (axis is None or axis.capturable)
-        for _ in range(steps.idx.shape[0]):
+        for i in range(steps.idx.shape[0]):
             phase = phase_of()
             if capture:
                 graph = steps.graphs.get(phase)
                 if graph is None:
-                    tc = time.perf_counter()
-                    graph = steps.graphs[phase] = self._capture(steps, body_for(phase), generators)
-                    capture_s += time.perf_counter() - tc
+                    with tracing.span("graphs.capture", train=steps.train,
+                                      shape=tuple(steps.idx.shape)) as timed:
+                        graph = steps.graphs[phase] = self._capture(steps, body_for(phase),
+                                                                    generators)
+                    capture_s += timed.seconds
                 before_step()
-                graph.replay()
+                with tracing.span("graphs.replay", step=i):
+                    graph.replay()
             else:
                 before_step()
                 body_for(phase)()
@@ -225,8 +240,10 @@ class StepGraphs:
         t0 = time.perf_counter()
         capture_s = self._run(steps, body_for, lambda: opt.applies_now(state),
                               eng._gens.generators, before_step, after_step)
-        losses = steps.losses.cpu().numpy()  # waits for every step
-        return {"losses": losses, "cm": steps.cm.cpu().numpy(), "capture_seconds": capture_s,
+        with tracing.span("graphs.readback"):
+            losses = steps.losses.cpu().numpy()  # waits for every step
+            cm = steps.cm.cpu().numpy()
+        return {"losses": losses, "cm": cm, "capture_seconds": capture_s,
                 "seconds": time.perf_counter() - t0 - capture_s}
 
     def eval(self, plan: dict) -> dict:
@@ -245,7 +262,9 @@ class StepGraphs:
 
         t0 = time.perf_counter()
         capture_s = self._run(steps, body_for, lambda: None, list, lambda: None, lambda: None)
-        losses = steps.losses.cpu().numpy()
-        cm = steps.cm.cpu().numpy()
-        return {"losses": losses, "preds": steps.preds.cpu().numpy(), "cm": cm,
+        with tracing.span("graphs.readback"):
+            losses = steps.losses.cpu().numpy()
+            cm = steps.cm.cpu().numpy()
+            preds = steps.preds.cpu().numpy()
+        return {"losses": losses, "preds": preds, "cm": cm,
                 "capture_seconds": capture_s, "seconds": time.perf_counter() - t0 - capture_s}

@@ -21,12 +21,17 @@ Port of the JAX package's ``mgnns_tpu/engine/train.py``:
   experiment/pred text files; ``learning(profile_dir=)`` writes a
   ``torch.profiler`` trace of the first epoch.
 
-The step's phases are ``torch.profiler`` ranges (``engine.forward``,
-``engine.backward``, ``engine.all_reduce`` under a mesh,
-``engine.optimizer``).  The engine never inspects the model: it takes an
-``apply_fn`` of signature ``(params, batch_stats, batch, *, train,
-generator[, axis]) -> (logits, new_batch_stats[, aux])``, where ``aux`` is a
-scalar loss term.  Dropout in step ``s`` draws from the engine's
+The step's phases are :func:`mgnns_tpu_torch.tracing.stage` spans
+(``engine.forward``, ``engine.backward``, ``engine.all_reduce`` under a
+mesh, ``engine.optimizer``), and each epoch is an ``engine.epoch`` span
+(``train`` true or false).  A stage's profiler range is recorded where the
+step runs on the host: every eager step, and once at a step's capture, never
+in its replays.  A captured step holds each stage's begin and end mark
+kernels, so every replay shows its phases in the device trace.  The engine
+never inspects the model: it takes an ``apply_fn`` of signature ``(params,
+batch_stats, batch, *, train, generator[, axis]) -> (logits,
+new_batch_stats[, aux])``, where ``aux`` is a scalar loss term.  Dropout
+in step ``s`` draws from the engine's
 :class:`~mgnns_tpu_torch.nn.core.SiteGenerators`, seeded by ``(seed, s)``.
 
 ``Engine(mesh=...)`` (:func:`mgnns_tpu_torch.parallel.mesh.create_mesh`),
@@ -79,8 +84,8 @@ from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from mgnns_tpu_torch import tracing
 from mgnns_tpu_torch.engine import metrics as M
 from mgnns_tpu_torch.engine.graphs import StepGraphs
 from mgnns_tpu_torch.engine.optim import Optimizer, reduce_gradients, select_
@@ -280,7 +285,7 @@ class Engine:
         loop path, the eager plan path and in a captured step: it reads no
         host value that changes between steps."""
         loss, grads, logits, new_bs = self._loss_and_grads(batch)
-        with torch.no_grad(), record_function("engine.optimizer"):
+        with torch.no_grad(), tracing.stage("engine.optimizer"):
             ok = torch.isfinite(loss) if self.nan_guard else None
             self.opt.update(tree_leaves(self.params), grads, self.opt_state, ok, apply_now)
             stats = tree_leaves(self.batch_stats)
@@ -297,7 +302,7 @@ class Engine:
         and the logits are this rank's rows."""
         leaves = tree_leaves(self.params)
         live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
-        with record_function("engine.forward"):
+        with tracing.stage("engine.forward"):
             logits, new_bs, aux = _unpack(self._apply(
                 tree_unflatten(self.params, live), self.batch_stats, batch, train=True,
                 generator=self._gens.root))
@@ -305,12 +310,12 @@ class Engine:
                                  batch.get("weight_total")) + self.aux_loss_weight * aux
         want = [i for i, p in enumerate(live) if p.requires_grad]
         grads: list = [None] * len(live)
-        with record_function("engine.backward"):
+        with tracing.stage("engine.backward"):
             for i, g in zip(want, torch.autograd.grad(loss, [live[i] for i in want], allow_unused=True)):
                 grads[i] = g
         loss = loss.detach()
         if self.axis is not None:
-            with torch.no_grad(), record_function("engine.all_reduce"):
+            with torch.no_grad(), tracing.stage("engine.all_reduce"):
                 grads, loss = reduce_gradients(grads, loss, self.axis)
         return loss, grads, logits.detach(), new_bs
 
@@ -320,7 +325,7 @@ class Engine:
 
     def _eval_core(self, batch: dict, cm: torch.Tensor):
         """Under a mesh the loss is this rank's share of the batch's."""
-        with torch.no_grad():
+        with torch.no_grad(), tracing.stage("engine.forward"):
             logits, _, _ = _unpack(self._apply(self.params, self.batch_stats, batch,
                                                train=False, generator=None))
             loss = cross_entropy(logits, batch["label"], batch["weight"],
@@ -403,6 +408,7 @@ class Engine:
             out["sample_index"] = plan.get("sample_index", plan["idx"]).reshape(-1)[w]
         return out
 
+    @tracing.span("engine.epoch", train=True)
     def train_epoch(self, loader: Iterable[dict], log_every: int = 0) -> dict:
         """One epoch: over ``loader.epoch_plan()`` when the loader has one
         (captured steps on the card), else batch by batch."""
@@ -440,6 +446,7 @@ class Engine:
         out["epoch_seconds"] = dt
         return out
 
+    @tracing.span("engine.epoch", train=False)
     def eval_epoch(self, loader: Iterable[dict], collect_preds: bool = False) -> dict:
         plan = self._epoch_plan(loader)
         if plan is not None:

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/torch_ext/`` at the repository
 root, named by a hash of its source and flags so a changed source is rebuilt
 and an unchanged one is loaded as it is, with nvcc's log kept beside it
-(``lib<name>-<hash>.log``).  Nothing is compiled at import:
-:func:`load` builds on first use, and :func:`build_all` starts one ``nvcc``
-per source at once.
+(``lib<name>-<hash>.log``).  Nothing is compiled at import: the first
+:func:`load` of any source builds every source, and :func:`build_all` starts
+one ``nvcc`` per source at once (a captured step launches K1 and the stage
+marks of ``mark.cu`` alike).
 
 The host C++ of ``mgnns_tpu_torch/csrc/<name>.cpp`` (the native
 preprocessing, :mod:`mgnns_tpu_torch.native`) is built the same way by the
@@ -31,7 +32,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_ext")
-SOURCES = ("edge_max",)
+SOURCES = ("edge_max", "mark")
 HOST_CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # native/Makefile's flags
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
@@ -117,7 +118,9 @@ def _log_path(so: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    return build_all((name,))[name].lib
+    """The library of ``name``, one of :data:`SOURCES`, built at first use
+    with the others."""
+    return build_all()[name].lib
 
 
 def _cxx() -> str | None:

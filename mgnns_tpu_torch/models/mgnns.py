@@ -17,10 +17,15 @@ Both trunks see the same image.  ``consts`` holds the label-embedding query
 and the object/place GloVe inputs (the JAX package passes the latter two in
 the batch).  The trunks' running statistics are the separate
 ``batch_stats`` tree, which the apply returns updated in train mode
-(:mod:`mgnns_tpu_torch.nn.resnet`).  The forward's five stages are named
-``torch.profiler`` ranges (``mgnns.text_gcn``, ``.lstm``,
-``.object_channel``, ``.place_channel``, ``.fusion``) for the per-stage
-breakdown; without a profiler each is one host call per forward.
+(:mod:`mgnns_tpu_torch.nn.resnet`).  The forward's five stages are
+:func:`mgnns_tpu_torch.tracing.stage` spans (``mgnns.text_gcn``, ``.lstm``,
+``.object_channel``, ``.place_channel``, ``.fusion``), and each stage's
+output passes a :func:`~mgnns_tpu_torch.tracing.grad_mark`.  Their profiler
+ranges are recorded where the forward runs on the host: on every eager
+forward, and once at the capture of a graph, never in its replays.  A
+captured forward holds each stage's begin and end mark kernels and a
+captured backward each stage's ``.bwd`` mark, so every replay shows its
+stages in the device trace.
 
 On a model axis (``model=``, :mod:`mgnns_tpu_torch.parallel.sharding`'s
 rules) the text tables and the embedding are vocab-parallel, the attention
@@ -33,10 +38,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from mgnns_tpu_torch.config import ModelConfig
+from mgnns_tpu_torch import tracing
 from mgnns_tpu_torch.graphs.cooccur import gen_adj
 from mgnns_tpu_torch.nn import attention, image_gcn, lstm, resnet, text_gcn
 from mgnns_tpu_torch.nn.core import (
@@ -259,28 +264,31 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
     rngs = RngStream(generator)
     new_stats: dict = {}
     aux: dict = {}
-    with record_function("mgnns.text_gcn"):
-        text_feature = text_gcn.text_gcn_apply(
+    with tracing.stage("mgnns.text_gcn"):
+        text_feature = tracing.grad_mark(text_gcn.text_gcn_apply(
             params["text_gcn"], batch["ids"], batch["lens"], batch["eids"],
             ngram=(batch["eids"].shape[-1] - 1) // 2, dropout_rate=cfg.text_dropout,
             train=train, generator=rngs.next("text_gcn"),
-            model=scope(model, "text_gcn"))                        # [B, 300]
-    with record_function("mgnns.lstm"):
+            model=scope(model, "text_gcn")), "mgnns.text_gcn")     # [B, 300]
+    with tracing.stage("mgnns.lstm"):
         emb = embedding(params["embedding"]["table"], batch["ids"],
                         sharded(model, "embedding/table"))
         text_memory_bank, _ = lstm.lstm_apply(
             params["lstm"], emb, batch["lens"], dropout_rate=cfg.dropout, train=train,
             generator=rngs.next("lstm"))                            # [B, L, 300]
+        text_memory_bank = tracing.grad_mark(text_memory_bank, "mgnns.lstm")
 
     image = normalize_image_batch(batch["image"], cfg.cdtype)
-    with record_function("mgnns.object_channel"):
+    with tracing.stage("mgnns.object_channel"):
         obj_bank, obj_vec, new_stats["object_trunk"] = _image_channel(
             params, batch_stats, consts, image, side="object", cfg=cfg, train=train, rngs=rngs,
             axis=axis, model=model)
-    with record_function("mgnns.place_channel"):
+        obj_bank, obj_vec = tracing.grad_mark((obj_bank, obj_vec), "mgnns.object_channel")
+    with tracing.stage("mgnns.place_channel"):
         plc_bank, plc_vec, new_stats["place_trunk"] = _image_channel(
             params, batch_stats, consts, image, side="place", cfg=cfg, train=train, rngs=rngs,
             axis=axis, model=model)
+        plc_bank, plc_vec = tracing.grad_mark((plc_bank, plc_vec), "mgnns.place_channel")
 
     head_diffs: list = []
 
@@ -298,7 +306,7 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
     # the image->text stacks carry the head-diversity regularizer when
     # cfg.is_regu (reference :198-199,:225-226); the text->image ones never do
     mask = batch["mask"]
-    with record_function("mgnns.fusion"):
+    with tracing.stage("mgnns.fusion"):
         img_object_text = run_stack("img_object_text_mha", obj_vec, text_memory_bank, mask,
                                     "iot", cfg.is_regu)
         img_place_text = run_stack("img_place_text_mha", plc_vec, text_memory_bank, mask,
@@ -313,5 +321,5 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
                           dim=1)                                    # [B, 1200]
         multi = linear(params["multi_linear_1"], multi, row=sharded(model, "multi_linear_1/w"))
         multi = dropout(multi, cfg.dropout, rngs.next("classifier"), train)
-        logits = linear(params["multi_linear_2"], multi)
+        logits = tracing.grad_mark(linear(params["multi_linear_2"], multi), "mgnns.fusion")
     return logits, new_stats, aux

@@ -29,12 +29,20 @@ that every rank returns the whole request.  Behind HTTP
 (``cli.serve --mesh_data/--mesh_model``) only rank 0 takes requests: its
 :class:`BatchingFrontend` hands each encoded chunk to the other ranks
 through a :class:`MeshLink`, and they run it in the same order.
+
+Each chunk's host work is :mod:`mgnns_tpu_torch.tracing` spans tagged with
+the chunk's id (``chunk``, one sequence for the process):
+``serving.encode_text`` and ``serving.decode_images`` (host encode),
+``serving.dispatch`` (H2D copy and the forward's launches, the model's
+``mgnns.*`` spans inside it) and ``serving.readback`` (the wait for the
+probabilities and their copy); ``tracing.spans("serving.")`` reads them.
 """
 
 from __future__ import annotations
 
 import collections
 import datetime
+import itertools
 import json
 import logging
 import os
@@ -46,6 +54,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from mgnns_tpu_torch import tracing
 from mgnns_tpu_torch.config import DataConfig, ModelConfig, TextGraphConfig
 from mgnns_tpu_torch.data import images as I
 from mgnns_tpu_torch.data.text import build_text_side, encode_texts
@@ -54,6 +63,9 @@ from mgnns_tpu_torch.graphs.vocab import make_word_to_id
 from mgnns_tpu_torch.models.mgnns import DEAD_MODULES, mgnns_apply
 from mgnns_tpu_torch.models.text_only import text_model_apply
 from mgnns_tpu_torch.utils import resolve_device, tree_leaves, tree_paths, tree_to
+
+# the id of each chunk that a Predictor or a frontend runs, for its spans
+_chunk_ids = itertools.count()
 
 
 def resolve_batch_buckets(requested: list[int] | None, max_batch: int,
@@ -178,8 +190,6 @@ class Predictor:
                 self.shards = Shards(model, placements)
         dsize = 1 if self.data is None else self.data.size
         self.batch_buckets = resolve_batch_buckets(batch_buckets, max_batch, dsize)
-        # per-stage latency of the most recent chunk (ms)
-        self.last_timings: dict = {}
 
     def close(self) -> None:
         if self._decode_pool is not None:
@@ -227,29 +237,25 @@ class Predictor:
         def padrow(a: np.ndarray) -> np.ndarray:
             return a if pad == 0 else np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
 
-        t0 = time.perf_counter()
-        ids, lens, mask, eids = encode_texts(
-            [r["text"] for r in records], self.w2i, self.graph, self.graph_cfg)
-        t1 = time.perf_counter()
+        with tracing.span("serving.encode_text"):
+            ids, lens, mask, eids = encode_texts(
+                [r["text"] for r in records], self.w2i, self.graph, self.graph_cfg)
         batch = {"ids": padrow(ids), "lens": padrow(lens),
                  "mask": padrow(mask), "eids": padrow(eids)}
-        t2 = t1
         if not self.text_only:
-            batch["image"] = padrow(self._encode_images(records))
-            t2 = time.perf_counter()
-        self.last_timings["encode_text_ms"] = (t1 - t0) * 1e3
-        self.last_timings["decode_images_ms"] = (t2 - t1) * 1e3
+            with tracing.span("serving.decode_images"):
+                batch["image"] = padrow(self._encode_images(records))
         return batch, n
 
     # ------------------------------------------------------------- predict
 
+    @tracing.span("serving.dispatch")
     def _forward(self, batch_np: dict) -> torch.Tensor:
         """H2D copy + eval forward + softmax; returns device probs without
         waiting for them.  ``batch_np``: :meth:`_encode_host`'s numpy arrays,
         or tensors of the same shapes (on ``device`` they are not copied).
         On a mesh each data position runs its block of the bucket's rows,
         and the blocks are gathered (a collective)."""
-        t0 = time.perf_counter()
         if self.data is not None and self.data.size > 1:
             rows = next(iter(batch_np.values())).shape[0] // self.data.size
             batch_np = {k: v[self.data.rank * rows:(self.data.rank + 1) * rows]
@@ -266,10 +272,10 @@ class Predictor:
                 from mgnns_tpu_torch.parallel.collectives import gather_cat
 
                 probs = gather_cat(probs, self.data)
-        self.last_timings["forward_dispatch_ms"] = (time.perf_counter() - t0) * 1e3
         return probs
 
     @staticmethod
+    @tracing.span("serving.readback")
     def _readback(probs: torch.Tensor) -> np.ndarray:
         """Wait for a chunk's device probs and copy them to the host."""
         return probs.cpu().numpy()
@@ -296,19 +302,23 @@ class Predictor:
             if "text" not in rec:
                 raise ValueError(f"record {i} (id={rec.get('id')!r}) has no 'text' field")
         out: list[dict] = []
-        pending = None  # (device probs, n) of the chunk in flight
+        pending = None  # (device probs, n, chunk id) of the chunk in flight
         for i in range(0, len(records), self.max_batch):
-            batch, n = self._encode_host(records[i : i + self.max_batch])
-            probs = self._forward(batch)
+            chunk = next(_chunk_ids)
+            with tracing.tags(chunk=chunk):
+                batch, n = self._encode_host(records[i : i + self.max_batch])
+                probs = self._forward(batch)
             if pending is not None:
-                out.extend(self._format(self._readback(pending[0])[: pending[1]]))
-            pending = (probs, n)
+                out.extend(self._format(self._finish(*pending)))
+            pending = (probs, n, chunk)
         if pending is not None:
-            t0 = time.perf_counter()
-            probs = self._readback(pending[0])
-            self.last_timings["readback_ms"] = (time.perf_counter() - t0) * 1e3
-            out.extend(self._format(probs[: pending[1]]))
+            out.extend(self._format(self._finish(*pending)))
         return out
+
+    def _finish(self, probs: torch.Tensor, n: int, chunk: int) -> np.ndarray:
+        """The first ``n`` rows of a chunk's probabilities, on the host."""
+        with tracing.tags(chunk=chunk):
+            return self._readback(probs)[:n]
 
     def warm(self) -> None:
         """Run every batch bucket once, so no live request pays first-call
@@ -596,14 +606,16 @@ class BatchingFrontend:
                 chunks = [all_records[i: i + mb] for i in range(0, len(all_records), mb)]
                 acc["need"] = len(chunks)
                 for chunk in chunks:
-                    np_batch, n_real = self.predictor._encode_host(chunk)
+                    cid = next(_chunk_ids)
+                    with tracing.tags(chunk=cid):
+                        np_batch, n_real = self.predictor._encode_host(chunk)
                     # count before handing over: the device thread can finish
                     # the chunk between put and a late increment, driving the
                     # counter negative and breaking the coalescing signal
                     with self._lock:
                         self._inflight += 1
                     try:
-                        self._encoded_q.put((group, np_batch, n_real, acc))
+                        self._encoded_q.put((group, np_batch, n_real, acc, cid))
                     except BaseException:
                         self._item_done()
                         raise
@@ -628,12 +640,14 @@ class BatchingFrontend:
     def _finalize(self, pending) -> None:
         """Block on one in-flight chunk's readback; deliver its group once
         the accumulator holds every chunk."""
-        group, probs_dev, n_real, acc = pending
+        group, probs_dev, n_real, acc, cid = pending
         try:
             if acc["failed"]:
                 return
             try:
-                acc["probs"].append(self.predictor._readback(probs_dev)[:n_real])
+                with tracing.tags(chunk=cid):
+                    probs = self.predictor._readback(probs_dev)
+                acc["probs"].append(probs[:n_real])
                 if len(acc["probs"]) == acc["need"]:
                     self._deliver(group, np.concatenate(acc["probs"]))
             except Exception as e:
@@ -647,7 +661,7 @@ class BatchingFrontend:
         forward before blocking on chunk k's readback; finish at once when
         nothing else is queued."""
         pred = self.predictor
-        pending = None  # (group, device probs, n_real, acc) in flight
+        pending = None  # (group, device probs, n_real, acc, chunk id) in flight
         while True:
             if pending is not None:
                 try:
@@ -666,7 +680,7 @@ class BatchingFrontend:
                 if self.link is not None:
                     self.link.stop()
                 return
-            group, np_batch, n_real, acc = item
+            group, np_batch, n_real, acc, cid = item
             if acc["failed"]:
                 self._item_done()
                 continue
@@ -676,8 +690,9 @@ class BatchingFrontend:
                 self._item_done()
                 continue
             try:
-                probs_dev = (pred._forward(np_batch) if self.link is None
-                             else self.link.forward(np_batch, n_real))
+                with tracing.tags(chunk=cid):
+                    probs_dev = (pred._forward(np_batch) if self.link is None
+                                 else self.link.forward(np_batch, n_real))
             except Exception as e:
                 acc["failed"] = True
                 self._deliver_error(group, e)
@@ -685,7 +700,7 @@ class BatchingFrontend:
                 continue
             if pending is not None:
                 self._finalize(pending)
-            pending = (group, probs_dev, n_real, acc)
+            pending = (group, probs_dev, n_real, acc, cid)
 
     def close(self, timeout: float = 60.0) -> None:
         """Answer what is queued, then stop both threads (and, on a mesh,

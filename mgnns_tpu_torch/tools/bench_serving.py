@@ -8,8 +8,8 @@ clients.  Per model:
 
 - ``direct``: ``predict`` at batch 1 and ``max_batch``, ``n_iters``
   sequential calls after a warm one: p50 / p99 latency, samples/s, and the
-  medians of the per-stage ``last_timings`` (host encode, image decode,
-  forward dispatch, readback);
+  medians of each call's ``serving.*`` spans (host encode, image decode,
+  forward dispatch, readback; :mod:`mgnns_tpu_torch.tracing`);
 - ``sustained``: ``BatchingFrontend`` under ``clients`` threads each
   submitting full batches, so that host encode overlaps the card;
 - ``http``: ``cli.serve``'s handler and server in this process, ``clients``
@@ -73,6 +73,25 @@ def _pct(lat: list[float], q: float) -> float:
     return float(np.percentile(np.array(lat) * 1e3, q))
 
 
+# the serving spans, by the stage names this tool reports
+STAGE_SPANS = {"serving.encode_text": "encode_text_ms",
+               "serving.decode_images": "decode_images_ms",
+               "serving.dispatch": "forward_dispatch_ms", "serving.readback": "readback_ms"}
+
+
+def _stage_ms(since_ns: int) -> dict:
+    """Milliseconds of each serving span begun since ``since_ns``
+    (``time.perf_counter_ns``), summed over the call's chunks."""
+    from mgnns_tpu_torch import tracing
+
+    out: dict = {}
+    for s in tracing.spans("serving."):
+        if s.start_ns >= since_ns:
+            key = STAGE_SPANS[s.name]
+            out[key] = out.get(key, 0.0) + (s.end_ns - s.start_ns) / 1e6
+    return out
+
+
 def bench_direct(pred, label: str, n_iters: int = 50) -> dict:
     out = {}
     for bs in (1, pred.max_batch):
@@ -80,10 +99,11 @@ def bench_direct(pred, label: str, n_iters: int = 50) -> dict:
         want = pred.predict(recs)  # warm
         lat, stages, worst = [], [], (True, 0.0)
         for _ in range(n_iters):
+            since = time.perf_counter_ns()
             t0 = time.perf_counter()
             got = pred.predict(recs)
             lat.append(time.perf_counter() - t0)
-            stages.append(dict(pred.last_timings))
+            stages.append(_stage_ms(since))
             eq, diff = _differ(got, want)
             worst = (worst[0] and eq, max(worst[1], diff))
         out[f"b{bs}"] = {

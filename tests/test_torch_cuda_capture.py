@@ -41,3 +41,43 @@ def test_capture_survives_collecting_a_dropped_engine(cuda_device, monkeypatch):
         if collecting:
             gc.enable()
     assert collected and out["fused"] and np.isfinite(out["step_losses"]).all()
+
+
+@pytest.mark.cuda
+def test_each_replay_shows_every_mark_once_in_order(cuda_device, monkeypatch):
+    """Under the profiler, one replay of the captured train step and one of
+    the eval step put each of their stage marks on the device once, in the
+    order the step runs its stages (``tests/test_torch_tracing.py`` holds
+    the same order on the CPU, capturing forced on); the K1 and K2 readers'
+    name fragments find their one launch each, and no mark."""
+    from benchmark.trace import MARGIN_S, Traced
+    from mgnns_tpu_torch import tracing
+    from test_torch_tracing import FORWARD, TRAIN_STEP
+
+    launched: list[str] = []
+    launch = tracing._launch
+
+    def counted(name: str) -> None:
+        launched.append(name)
+        launch(name)
+
+    monkeypatch.setattr(tracing, "_launch", counted)
+    eng, loader, _ = _fusion_plan_engine(cuda_device, 0.0, nb=1)
+    runs = ((lambda: eng.train_epoch(loader), TRAIN_STEP, 1),
+            (lambda: eng.eval_epoch(loader), FORWARD, 0))
+    for run, want, _ in runs:
+        launched.clear()
+        run()  # captures: the marks launch once, in the capture, not in its warm-up
+        assert launched == want
+    launched.clear()
+    for run, want, k2 in runs:
+        with Traced(MARGIN_S) as traced:
+            run()
+        trace = traced.trace
+        found = [(s, tracing.mark_of(name)) for name, s, _ in trace.device
+                 if name.startswith("mgnns_mark_")]
+        assert [m for _, m in sorted(found)] == want
+        assert len(trace.named("edge_max_fwd_kernel")) == 1
+        assert len(trace.named("edge_max_bwd_kernel")) == k2
+        assert [h[0] for h in trace.host].count("graphs.replay") == 1
+    assert launched == []  # a replay launches its marks without Python
