@@ -10,9 +10,10 @@ Phases (any failure exits non-zero, and no result line is printed):
 0. the card: name and power limit, torch's global TF32 flags as found (left
    as they are) and the conv precision the package pins for its float32
    trunk convolutions;
-1. build every CUDA kernel (K1, K2) from ``mgnns_tpu_torch/kernels/csrc``;
-   ptxas's registers, stack and spills of K1 and K2 at the model's window
-   (g=4), which must use no local memory;
+1. build every CUDA kernel (K1, K2, the BiLSTM's two) from
+   ``mgnns_tpu_torch/kernels/csrc``; ptxas's registers, stack and spills of
+   K1 and K2 at the model's window (g=4) and of the BiLSTM's kernels, which
+   must use no local memory;
 2. K1 against its plain PyTorch version on the card, exactly, at the model's
    shape, a small odd one, g=0 and g=16 at full width and D=33 (the scalar
    path), the bench's and the eval ladder's batches (32 to 512) and the dry
@@ -24,6 +25,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``d_emb`` exactly, ``d_w`` within 1e-5 of scale (its sum over D runs in
    another order), the constant-input tie case exactly; kernel and plain
    times;
+2c. the BiLSTM's forward and backward kernels (``kernels/lstm.py``) against
+   the plain step loop and reverse recurrence on the card, one layer of the
+   model's widths (H=150) at the train and eval batches (16, 128) with the
+   benchmark's 5-90-token lengths and with 0, 1 and L: the outputs within
+   1e-5, dgates within 1e-4 of scale; kernel (profiler), plain, cuDNN's
+   unmasked bidirectional layer (the yardstick) and bound times;
 3. the serving path at the full width of the fusion model: a seeded
    synthetic corpus over a 20,153-word vocabulary, its PMI graph, 80/365-class
    label graphs, ``ModelConfig()`` weights from a seed, and a
@@ -196,6 +203,7 @@ from mgnns_tpu_torch.engine.metrics import confusion_init
 from mgnns_tpu_torch.engine.train import Engine, cross_entropy
 from mgnns_tpu_torch.graphs.pmi import cal_pmi
 from mgnns_tpu_torch.kernels import build, edge_max
+from mgnns_tpu_torch.kernels import lstm as lstm_kernel
 from mgnns_tpu_torch.models.mgnns import mgnns_apply, mgnns_init
 from mgnns_tpu_torch.models.text_only import text_model_apply, text_model_init
 from mgnns_tpu_torch.nn import resnet
@@ -404,6 +412,88 @@ def phase2b_k2() -> dict:
             "replaces": "mgnns_tpu/kernels/edge_max.py:91",
             "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+# ----------------------------------------------------------------- phase 2c
+
+
+def lstm_bound_ms(lens: torch.Tensor, L: int, H: int, backward: bool) -> tuple[float, str]:
+    """Least time for one BiLSTM layer's kernel on these inputs: the bytes
+    it must move against the float32 product of each valid step, row and
+    direction with w_hh (2 * H * 4H operations; the cell's few are left
+    out).  The forward reads xw at valid steps and w_hh, and writes out and
+    the saved gates and cells of every step and the final states; the
+    backward reads the gates, cells and output gradient at valid steps and
+    w_hh, and writes dgates."""
+    valid = int(lens.clamp(0, L).long().sum()) * 2
+    B = lens.numel()
+    if backward:
+        nbytes = (valid * (4 * H + H + H) + 2 * H * 4 * H + B * L * 2 * 4 * H) * 4
+    else:
+        nbytes = (valid * 4 * H + 2 * H * 4 * H + B * L * 2 * (H + 4 * H + H) + 4 * B * H) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = valid * 2 * H * 4 * H / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase2c_lstm() -> dict:
+    from mgnns_tpu_torch.nn import lstm
+
+    H = 150
+    g = torch.Generator(device="cuda").manual_seed(2)
+    w_hh = torch.randn(2, H, 4 * H, generator=g, device="cuda") / H ** 0.5
+    b_hh = torch.randn(2, 4 * H, generator=g, device="cuda") / H ** 0.5
+    out = {}
+    for B in (16, 128):
+        L = 100
+        xw = torch.randn(2, B, L, 4 * H, generator=g, device="cuda")
+        up = torch.randn(B, L, 2 * H, generator=g, device="cuda")
+        for edge in (True, False):  # the 5-90 lens last: the timed ones
+            lens = torch.randint(5, 91, (B,), generator=g, device="cuda", dtype=torch.int32)
+            if edge:
+                lens[:3] = torch.tensor([0, 1, L], dtype=torch.int32)
+            got = torch.ops.mgnns.lstm_forward(xw, w_hh, b_hh, lens, True)
+            dgot = torch.ops.mgnns.lstm_backward(got[3], got[4], w_hh, lens, up, None, None)
+            want = lstm.lstm_layer_plain(xw, w_hh, b_hh, lens, True)
+            dwant = lstm.lstm_layer_backward_plain(want[3], want[4], w_hh, lens, up, None, None)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            derr = float((dgot - dwant).abs().max()) / float(dwant.abs().max())
+            if not err <= 1e-5 or not derr <= 1e-4:
+                raise SystemExit(f"LSTM B={B} lens {'0/1/L' if edge else '5-90'}: forward "
+                                 f"{err}, backward {derr} of scale from the plain versions")
+            log(f"phase 2c: LSTM layer B={B} L={L} H={H}, lens {'with 0, 1, L' if edge else '5-90'}"
+                f": outputs, gates and cells within {err} of the plain loop, dgates within "
+                f"{derr} of scale of the plain reverse recurrence")
+        fwd_us = kernel_us(lambda: torch.ops.mgnns.lstm_forward(xw, w_hh, b_hh, lens, True),
+                           "mgnns_lstm_fwd_kernel")
+        fwd_eval_us = kernel_us(lambda: torch.ops.mgnns.lstm_forward(xw, w_hh, b_hh, lens, False),
+                                "mgnns_lstm_fwd_kernel")
+        saved = torch.ops.mgnns.lstm_forward(xw, w_hh, b_hh, lens, True)
+        bwd_us = kernel_us(lambda: torch.ops.mgnns.lstm_backward(saved[3], saved[4], w_hh, lens,
+                                                                  up, None, None),
+                           "mgnns_lstm_bwd_kernel")
+        plain_ms = cuda_ms(lambda: lstm.lstm_layer_plain(xw, w_hh, b_hh, lens, False), iters=3)
+        plain_bwd_ms = cuda_ms(lambda: lstm.lstm_layer_backward_plain(
+            saved[3], saved[4], w_hh, lens, up, None, None), iters=3)
+        # the yardstick: cuDNN's bidirectional layer over the whole L, unmasked
+        ref = torch.nn.LSTM(2 * H, H, batch_first=True, bidirectional=True).cuda()
+        x = torch.randn(B, L, 2 * H, generator=g, device="cuda")
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: ref(x), iters=20)
+        bound_ms, bound_by = lstm_bound_ms(lens, L, H, backward=False)
+        bwd_bound_ms, bwd_bound_by = lstm_bound_ms(lens, L, H, backward=True)
+        p = lstm_kernel.plan(H, B, 2, torch.cuda.get_device_properties(0).multi_processor_count)
+        log(f"phase 2c: LSTM layer B={B} L={L} H={H} (lens 5-90, max {int(lens.max())}; plan "
+            f"{p}): forward kernel {fwd_us} us a launch saving gates, {fwd_eval_us} us not "
+            f"(profiler), plain loop {plain_ms * 1e3} us, bound {bound_ms * 1e3} us "
+            f"({bound_by}), cuDNN's unmasked layer {library_ms * 1e3} us; backward kernel "
+            f"{bwd_us} us, plain {plain_bwd_ms * 1e3} us, bound {bwd_bound_ms * 1e3} us "
+            f"({bwd_bound_by}); {card_line()}")
+        out[B] = {"fwd_us": fwd_us, "fwd_eval_us": fwd_eval_us, "bwd_us": bwd_us,
+                  "plain_ms": plain_ms, "plain_bwd_ms": plain_bwd_ms,
+                  "library_ms": library_ms, "bound_ms": bound_ms, "bwd_bound_ms": bwd_bound_ms}
+    return out
 
 
 # ------------------------------------------------------------------ phase 3
@@ -2647,18 +2737,22 @@ def main() -> int:
     for lib in libs.values():
         log(lib.log.strip())
     # K1's chain and K2's register rings must stay in registers at the model's
-    # window (g=4); the log is the one kept beside the library, built in this
-    # run or before
-    for kernel, mangled in (("K1", K1_PTXAS_NAME), ("K2", K2_PTXAS_NAME)):
-        report = ptxas_report(libs["edge_max"].log, mangled)
+    # window (g=4), and the BiLSTM kernels' tiles; the log is the one kept
+    # beside the library, built in this run or before
+    for kernel, lib, mangled in (("K1", "edge_max", K1_PTXAS_NAME),
+                                 ("K2", "edge_max", K2_PTXAS_NAME),
+                                 ("LSTM forward", "lstm", "mgnns_lstm_fwd_kernel"),
+                                 ("LSTM backward", "lstm", "mgnns_lstm_bwd_kernel")):
+        report = ptxas_report(libs[lib].log, mangled)
         local = local_memory_bytes(report)
-        log(f"phase 1: ptxas, {kernel} at g=4: {' | '.join(report.splitlines())}")
+        log(f"phase 1: ptxas, {kernel}: {' | '.join(report.splitlines())}")
         if any(local):
-            raise SystemExit(f"phase 1: {kernel} at g=4 uses local memory (stack, spill "
+            raise SystemExit(f"phase 1: {kernel} uses local memory (stack, spill "
                              f"stores, spill loads: {local} bytes)")
 
     k1 = phase2_k1()
     k2 = phase2b_k2()
+    phase2c_lstm()
     setup = phase3(k1)
     p4 = phase4(setup, k1, k2)
     phase4b(p4)

@@ -1,4 +1,5 @@
-"""The port on the card: each CUDA kernel against its plain version, a
+"""The port on the card: each CUDA kernel against its plain version (K1,
+K2 and the BiLSTM's recurrence), a
 forward and a train step on the card against the same on the CPU, the
 kernels' launch counts across a train epoch, a ResNet trunk on the card
 against the CPU under the package's pinned float32 conv precision, the
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from mgnns_tpu_torch.kernels import edge_max
+from mgnns_tpu_torch.kernels import lstm as lstm_kernel
 from mgnns_tpu_torch.models.text_only import text_model_apply, text_model_init
 from mgnns_tpu_torch.utils import tree_to
 
@@ -145,6 +147,111 @@ def test_edge_max_backward_kernel_ties(cuda_device):
     assert len(torch.unique(want[1])) > 2  # fractional gradient mass
     for gg, ww in zip(got, want):
         torch.testing.assert_close(gg.cpu(), ww, rtol=0, atol=0)
+
+
+# (B, L, H, D): the model's widths (a cluster of 6 CTAs of 25 units) and a
+# small H that its cluster does not divide (2 CTAs of 19 and 18 units), at
+# one row, the train batch (tiles of 4 rows) and the eval batch (tiles of 16)
+LSTM_SHAPES = [(b, l, h, d) for b in (1, 16, 128) for l in (1, 17, 100)
+               for h, d in ((150, 300), (37, 23))]
+
+
+def lstm_case(shape, seed=0):
+    """CPU float32 weights of a 2-layer BiLSTM, inputs, lens with 0, 1 and L
+    where the batch has rows for them, and upstream gradients on the memory
+    bank and on the final h and c."""
+    from mgnns_tpu_torch.nn.lstm import lstm_init
+
+    B, L, H, D = shape
+    g = torch.Generator().manual_seed(seed)
+    params = lstm_init(g, D, H, 2, True)
+    x = torch.randn(B, L, D, generator=g)
+    lens = torch.randint(0, L + 1, (B,), generator=g, dtype=torch.int32)
+    lens[-1] = L
+    if B > 1:
+        lens[0] = 0
+    if B > 2:
+        lens[1] = 1
+    ups = (torch.randn(B, L, 2 * H, generator=g), torch.randn(4, B, H, generator=g),
+           torch.randn(4, B, H, generator=g))
+    return params, x, lens, ups
+
+
+def lstm_step(params, x, lens, ups):
+    """The BiLSTM's forward and the gradients of a loss on its memory bank
+    and final states: (out, h_n, c_n, dx, then dW_ih, dW_hh, db_ih, db_hh of
+    every layer and direction)."""
+    from mgnns_tpu_torch.nn.lstm import lstm_apply
+
+    out, (h, c) = lstm_apply(params, x, lens)
+    loss = sum((t * u).sum() for t, u in zip((out, h, c), ups))
+    leaves = [x] + [p[k] for layer in params["layers"] for p in layer
+                    for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    grads = torch.autograd.grad(loss, leaves)
+    return (out.detach(), h.detach(), c.detach(), *grads)
+
+
+def _lstm_on(device, dtype, params, x, lens, ups):
+    def leaf(t):
+        return t.to(device, dtype).requires_grad_()
+
+    return ({"layers": [[{k: leaf(v) for k, v in p.items()} for p in layer]
+                        for layer in params["layers"]]},
+            leaf(x), lens.to(device), tuple(u.to(device, dtype) for u in ups))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LSTM_SHAPES, ids=lambda s: "B{}-L{}-H{}-D{}".format(*s))
+def test_lstm_kernels_equal_plain(cuda_device, shape, monkeypatch):
+    """The two-layer BiLSTM through its kernels on the card (float32, one
+    forward and one backward launch a layer) against the plain versions on
+    the CPU in float64 (the step loop and the reverse recurrence, which
+    ``tests/test_torch_lstm.py`` holds to autograd through the loop): the
+    memory bank, h_n and c_n within 1e-5; dx, dW_ih, dW_hh, db_ih and db_hh
+    of every layer and direction within 1e-4 of each one's largest entry.
+    The plain loops never run on the card tensors."""
+    from mgnns_tpu_torch.nn import lstm
+
+    case = lstm_case(shape)
+    with monkeypatch.context() as m:
+        for name in ("_run_direction", "_run_direction_backward"):
+            m.setattr(lstm, name, lambda *a, **k: pytest.fail("the plain loop ran on the card"))
+        before = (lstm_kernel.launches, lstm_kernel.bwd_launches)
+        got = lstm_step(*_lstm_on(cuda_device, torch.float32, *case))
+        torch.cuda.synchronize()
+    assert (lstm_kernel.launches, lstm_kernel.bwd_launches) == (before[0] + 2, before[1] + 2)
+    want = lstm_step(*_lstm_on("cpu", torch.float64, *case))
+    names = ["out", "h_n", "c_n", "dx"] + [f"l{l}.{d}.{k}" for l in range(2) for d in range(2)
+                                           for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    worst = {}
+    for name, a, b in zip(names, got, want):
+        err = float((a.double().cpu() - b).abs().max())
+        scale = 1.0 if name in ("out", "h_n", "c_n") else max(float(b.abs().max()), 1e-30)
+        worst[name] = err / scale
+    print(f"LSTM {shape}: worst error of scale {max(worst.values())} ({max(worst, key=worst.get)})")
+    bad = {k: v for k, v in worst.items() if v > (1e-5 if k in ("out", "h_n", "c_n") else 1e-4)}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+def test_lstm_opcheck_on_card(cuda_device):
+    """``torch.library.opcheck`` on both BiLSTM operators with CUDA tensors:
+    the kernels behind the schema, the fake registrations and the autograd
+    formula."""
+    B, L, H = 3, 9, 37
+    g = torch.Generator().manual_seed(0)
+    xw = torch.randn(2, B, L, 4 * H, generator=g).to(cuda_device)
+    w_hh = (torch.randn(2, H, 4 * H, generator=g) * 0.2).to(cuda_device)
+    b_hh = torch.randn(2, 4 * H, generator=g).to(cuda_device)
+    lens = torch.tensor([0, 1, L], dtype=torch.int32, device=cuda_device)
+    torch.library.opcheck(torch.ops.mgnns.lstm_forward.default, (xw, w_hh, b_hh, lens, False))
+    torch.library.opcheck(torch.ops.mgnns.lstm_forward.default,
+                          (xw.clone().requires_grad_(), w_hh.clone().requires_grad_(),
+                           b_hh.clone().requires_grad_(), lens, True))
+    _, _, _, gates, cells = torch.ops.mgnns.lstm_forward(xw, w_hh, b_hh, lens, True)
+    up = torch.randn(B, L, 2 * H, device=cuda_device)
+    torch.library.opcheck(torch.ops.mgnns.lstm_backward.default,
+                          (gates, cells, w_hh, lens, up, None, None))
 
 
 def _text_train_setup(device):

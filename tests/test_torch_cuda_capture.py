@@ -1,5 +1,6 @@
 """A captured step on the card survives Python's collector freeing another
-engine's CUDA graphs (fault 3.6).  Like ``tests/test_torch_cuda.py``, whose
+engine's CUDA graphs (fault 3.6), shows its stage marks and kernels in
+order, and replays the BiLSTM's kernels bit for bit.  Like ``tests/test_torch_cuda.py``, whose
 fixtures it uses, it imports neither JAX nor the JAX package: on a machine
 with an NVIDIA GPU run ``python -m pytest --noconftest
 tests/test_torch_cuda_capture.py``.  Without a card it skips."""
@@ -8,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cuda import _fusion_plan_engine, cuda_device  # noqa: F401
+from test_torch_cuda import _fusion_plan_engine, cuda_device, lstm_case, lstm_step  # noqa: F401
 
 
 @pytest.mark.cuda
@@ -79,5 +80,44 @@ def test_each_replay_shows_every_mark_once_in_order(cuda_device, monkeypatch):
         assert [m for _, m in sorted(found)] == want
         assert len(trace.named("edge_max_fwd_kernel")) == 1
         assert len(trace.named("edge_max_bwd_kernel")) == k2
+        # the BiLSTM's kernels, one a layer, inside its stage: the forward's
+        # between its marks, the backward's from its .bwd mark to the next
+        at = {m: s for s, m in found}
+        fwd = trace.named("mgnns_lstm_fwd_kernel")
+        bwd = trace.named("mgnns_lstm_bwd_kernel")
+        assert len(fwd) == 2 and len(bwd) == 2 * k2
+        assert all(at["mgnns.lstm.begin"] < s < at["mgnns.lstm.end"] for _, s, _ in fwd)
+        assert all(at["mgnns.lstm.bwd"] < s < at["mgnns.text_gcn.bwd"] for _, s, _ in bwd)
         assert [h[0] for h in trace.host].count("graphs.replay") == 1
     assert launched == []  # a replay launches its marks without Python
+
+
+@pytest.mark.cuda
+def test_captured_lstm_replays_bit_equal(cuda_device):
+    """The BiLSTM's forward and backward at the train cell's shape (B=16,
+    L=100, H=150) captured in one CUDA graph: the capture holds one forward
+    and one backward kernel a layer, and two replays give the memory bank,
+    the final states and every gradient bit-equal to each other and to an
+    eager call (no atomics, sums in a fixed order)."""
+    from mgnns_tpu_torch.kernels import lstm as lstm_kernel
+    from test_torch_cuda import _lstm_on
+
+    args = _lstm_on(cuda_device, torch.float32, *lstm_case((16, 100, 150, 300), seed=5))
+    eager = [t.clone() for t in lstm_step(*args)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lstm_step(*args)  # warm-up off the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (lstm_kernel.launches, lstm_kernel.bwd_launches)
+    with torch.cuda.graph(graph):
+        static = lstm_step(*args)
+    assert (lstm_kernel.launches, lstm_kernel.bwd_launches) == (before[0] + 2, before[1] + 2)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in static])
+    for a, b, c in zip(eager, *replays):
+        assert torch.equal(a, b) and torch.equal(b, c)
