@@ -35,6 +35,46 @@ class TextGraphConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoeEncoderConfig:
+    """A ``deepseek_v3`` text encoder (:mod:`mgnns_tpu_torch.nn.moe`); the
+    defaults are Moonlight-16B-A3B's published sizes, with this chip's
+    share of an expert-parallel deployment over 8 chips: experts 0-7 of
+    64 held, and 20,480 of the 163,840 embedding rows."""
+
+    hidden_size: int = 2048
+    num_layers: int = 27
+    first_dense: int = 1            # first_k_dense_replace
+    num_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264  # the dense layers' MLP
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    experts_held: tuple = tuple(range(8))
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 50000.0
+    vocab_rows: int = 20480         # the embedding rows held
+
+    def __post_init__(self):
+        held = tuple(int(e) for e in self.experts_held)
+        if not held or len(set(held)) != len(held) or not all(
+                0 <= e < self.n_routed_experts for e in held):
+            raise ValueError(f"experts_held {self.experts_held!r} must be distinct experts of "
+                             f"0..{self.n_routed_experts - 1}")
+        object.__setattr__(self, "experts_held", held)
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyperparameters of the MGNNS fusion model."""
 
@@ -72,6 +112,9 @@ class ModelConfig:
     # XLA lowering choices of the JAX package; no effect on the maths
     unroll_trunks: bool = False
     stem_s2d: bool = False
+    # a deepseek_v3 stack in place of the embedding and the BiLSTM memory
+    # bank (nn/moe.py); None: the BiLSTM, today's model
+    text_encoder: MoeEncoderConfig | None = None
 
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:

@@ -12,9 +12,12 @@ through a device step counter, which it increments.
 
 - Capture runs a few eager warm-up steps on a side stream first (they build
   the kernels' library, the BLAS handles and every dropout site's
-  generator).  They would train, so the parameters, the optimizer state, the
-  BN statistics and the plan's buffers are copied before and written back
-  after them: the first replay is the epoch's first step.
+  generator).  A train step's warm-up runs with the update held
+  (``Engine._train_core(hold=True)``: the nan-guard's flag false), so the
+  parameters, the optimizer state and the BN statistics keep their values
+  without a copy (a MoE text encoder's are tens of GB); the plan's buffers
+  are copied before and written back after them: the first replay is the
+  epoch's first step.
 - Dropout: the engine's :class:`~mgnns_tpu_torch.nn.core.SiteGenerators`
   are registered with each train graph, and re-seeded on the host before
   each replay with the seeds the loop path uses, so a replay draws the loop
@@ -28,6 +31,8 @@ through a device step counter, which it increments.
   ones it was captured with (``Engine.restore`` and ``load_model_state``
   rebind them).
 - All graphs of an engine share one memory pool: they never run at once.
+  The warm-up steps allocate from it too, so they reuse what the graphs
+  hold between replays.
 - What the libraries chose at capture stays in the graph: cuDNN's
   algorithms (``torch.backends.cudnn.deterministic`` included) and the
   conv precision pin.
@@ -62,6 +67,7 @@ so every replay shows them in the device trace.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 
@@ -73,6 +79,22 @@ from mgnns_tpu_torch.engine import metrics as M
 from mgnns_tpu_torch.nn.core import derive_seed
 
 WARMUP_STEPS = 2
+
+
+@contextlib.contextmanager
+def _allocating_from(pool, device: torch.device):
+    """The current stream's allocations, from every thread (the backward's
+    too), taken from the graphs' ``pool``: an eager warm-up then reuses the
+    memory the engine's graphs hold between their replays, instead of
+    needing as much again beside them (a MoE text encoder's step does not
+    fit twice beside its parameters and Adam state)."""
+    index = torch.cuda._utils._get_device_index(device, optional=True)
+    torch._C._cuda_beginAllocateToPool(index, pool.id)
+    try:
+        yield
+    finally:
+        torch._C._cuda_endAllocateToPool(index, pool.id)
+        torch._C._cuda_releasePool(index, pool.id)
 
 
 class _PlanSteps:
@@ -150,21 +172,23 @@ class StepGraphs:
             steps.load(plan)
         return steps
 
-    def _capture(self, steps: _PlanSteps, body, generators) -> torch.cuda.CUDAGraph:
-        """Warm ``body`` up on a side stream with the state put back after,
-        then capture it."""
+    def _capture(self, steps: _PlanSteps, body, warm_up, generators) -> torch.cuda.CUDAGraph:
+        """Run ``warm_up`` (``body`` leaving the engine's state as it is) on
+        a side stream with the plan's buffers put back after, then capture
+        ``body``."""
         dev = self.engine.device
-        keep = steps.state + steps.buffers()
+        keep = steps.buffers()
         saved = [t.clone() for t in keep]
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
-            self._pool = torch.cuda.graph_pool_handle()
+            with torch.cuda.device(dev):
+                self._pool = torch.cuda.MemPool()  # alive as long as the engine
         side = self._stream
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), _allocating_from(self._pool, dev):
             for _ in range(WARMUP_STEPS):
                 steps.row.zero_()  # any row of the plan will do
-                body()
+                warm_up()
         torch.cuda.current_stream(dev).wait_stream(side)
         for t, v in zip(keep, saved):
             t.copy_(v)
@@ -181,7 +205,7 @@ class StepGraphs:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=side,
+            with torch.cuda.graph(graph, pool=self._pool.id, stream=side,
                                   capture_error_mode="thread_local"):
                 body()
         finally:
@@ -203,8 +227,8 @@ class StepGraphs:
                 if graph is None:
                     with tracing.span("graphs.capture", train=steps.train,
                                       shape=tuple(steps.idx.shape)) as timed:
-                        graph = steps.graphs[phase] = self._capture(steps, body_for(phase),
-                                                                    generators)
+                        graph = steps.graphs[phase] = self._capture(
+                            steps, body_for(phase), body_for(phase, hold=True), generators)
                     capture_s += timed.seconds
                 before_step()
                 with tracing.span("graphs.replay", step=i):
@@ -223,9 +247,9 @@ class StepGraphs:
         opt, state = eng.opt, eng.opt_state
         steps = self._steps(plan, train=True)
 
-        def body_for(apply_now: bool):
+        def body_for(apply_now: bool, hold: bool = False):
             def body():
-                loss = eng._train_core(steps.batch(), steps.cm, apply_now)
+                loss = eng._train_core(steps.batch(), steps.cm, apply_now, hold)
                 steps.losses.index_copy_(0, steps.row, loss.view(1))
                 steps.row.add_(1)
             return body
@@ -252,7 +276,7 @@ class StepGraphs:
         eng = self.engine
         steps = self._steps(plan, train=False)
 
-        def body_for(_):
+        def body_for(_, hold=False):  # an eval step changes no state of the engine
             def body():
                 loss, preds = eng._eval_core(steps.batch(), steps.cm)
                 steps.losses.index_copy_(0, steps.row, loss.view(1))

@@ -28,7 +28,11 @@ and counts each replicated leaf once, and the moments of a shard are its
 own.  A gather table's zero padding rows get zero gradients, so their
 moments, their weight decay and their updates stay zero.  The arithmetic runs on
 ``torch._foreach_*`` lists, so a step costs a few multi-tensor launches and
-no host sync.
+no host sync.  After the clip's norm over every leaf, steps 2-5 run over
+buckets of consecutive trained leaves of at most :data:`BUCKET_BYTES`
+(:func:`buckets`), so that their temporaries are a few copies of a bucket
+and not of every parameter; the arithmetic is elementwise, so the bits do
+not depend on the buckets.
 
 The step state lives on the device: the applied-step ``count`` (from which
 the step-decayed rate and the float32 bias corrections are computed) and,
@@ -77,7 +81,14 @@ def label_params(params: dict, faithful: bool = False, freeze_trunks: bool = Fal
     group list omits the sequence embedding, the image linear maps, the
     label-attention output linears and the classifier: ``faithful=True``
     freezes them as the reference does, ``faithful=False`` trains them at the
-    base rate."""
+    base rate.  A MoE text encoder (``encoder``) is a group of its own, its
+    routers' correction biases frozen."""
+    from mgnns_tpu_torch.nn.moe import frozen_leaf
+    from mgnns_tpu_torch.utils import tree_paths, tree_unflatten
+
+    def encoder_labels(sub):
+        return tree_unflatten(sub, ["frozen" if frozen_leaf(p) else "encoder"
+                                    for p in tree_paths(sub)])
 
     def subtree_label(name):
         if name in _ALWAYS_FROZEN:
@@ -88,8 +99,31 @@ def label_params(params: dict, faithful: bool = False, freeze_trunks: bool = Fal
             return _GROUPS_LISTED[name]
         return "frozen" if faithful else "base"
 
-    return {name: tree_map(lambda _, n=name: subtree_label(n), sub)
+    return {name: encoder_labels(sub) if name == "encoder" else
+            tree_map(lambda _, n=name: subtree_label(n), sub)
             for name, sub in params.items()}
+
+
+# the most bytes of trained leaves one pass of the chain takes: its
+# temporaries are a few copies of a bucket.  The fusion model's whole trained
+# set (363,989,256 bytes) is one bucket; a MoE text encoder's 2.7 B parameters are
+# about twenty.
+BUCKET_BYTES = 1 << 29
+
+
+def buckets(leaves: list[torch.Tensor], limit: int) -> list[list[int]]:
+    """Runs of consecutive positions into ``leaves``, each of at most
+    ``limit`` bytes (a larger leaf alone)."""
+    out: list[list[int]] = []
+    size = 0
+    for i, t in enumerate(leaves):
+        n = t.numel() * t.element_size()
+        if not out or size + n > limit:
+            out.append([])
+            size = 0
+        out[-1].append(i)
+        size += n
+    return out
 
 
 def reduce_gradients(grads: list[torch.Tensor | None], loss: torch.Tensor, axis
@@ -132,7 +166,8 @@ class Optimizer:
                  freeze_trunks: bool = False, algo: str = "adam"):
         if algo not in ("adam", "sgd"):
             raise ValueError(f"unknown optimizer algo {algo!r}")
-        self.group_factors = {"base": 1.0, "text": 10.0, "lstm": 10.0, "trunk": lrp, "frozen": 0.0}
+        self.group_factors = {"base": 1.0, "text": 10.0, "lstm": 10.0, "trunk": lrp,
+                              "encoder": 1.0, "frozen": 0.0}
         self.faithful = faithful
         self.freeze_trunks = freeze_trunks
         self.label(params)
@@ -161,6 +196,8 @@ class Optimizer:
         labels = tree_leaves(label_params(params, self.faithful, self.freeze_trunks))
         self.factors = [self.group_factors[lab] for lab in labels]
         self.trained = [i for i, f in enumerate(self.factors) if f != 0.0]
+        leaves = tree_leaves(params)
+        self.buckets = buckets([leaves[i] for i in self.trained], BUCKET_BYTES)
 
     def init(self, params: dict) -> dict:
         self.label(params)
@@ -279,42 +316,56 @@ class Optimizer:
         else:
             norm = self._model_axis_norm(grads)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
-        p = [params[i] for i in self.trained]
-        g = [grads[i] if grads[i] is not None else torch.zeros_like(params[i]) for i in self.trained]
-        g = torch._foreach_mul(g, scale)
-        # 2. L2 added to the gradient
-        if self.weight_decay:
-            torch._foreach_add_(g, p, alpha=self.weight_decay)
         count = state["count"]
         dev = count.device
-        # 3. Adam moments
+        # bias corrections in float32 from the device count, as optax
+        # computes them; -lr(step), the step decay from the device count
+        bc1 = bc2 = None
         if self.algo == "adam":
-            b1, b2, eps = 0.9, 0.999, 1e-8
-            mu = torch._foreach_mul(state["mu"], b1)
-            torch._foreach_add_(mu, g, alpha=1 - b1)
-            nu = torch._foreach_mul(state["nu"], b2)
-            torch._foreach_addcmul_(nu, g, g, value=1 - b2)
-            # bias corrections in float32 from the device count, as optax
-            # computes them
             c = (count + 1).to(torch.float32)
-            bc1 = 1 - self._const("b1", b1, torch.float32, dev) ** c
-            bc2 = 1 - self._const("b2", b2, torch.float32, dev) ** c
-            mu_hat = torch._foreach_div(mu, bc1)
-            den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-            torch._foreach_add_(den, eps)
-            g = torch._foreach_div(mu_hat, den)
-            select_(state["mu"], mu, ok)
-            select_(state["nu"], nu, ok)
-        # 4-5. the group factor, then -lr(step), the step decay from the
-        # device count
-        torch._foreach_mul_(g, [self.factors[i] for i in self.trained])
+            bc1 = 1 - self._const("b1", 0.9, torch.float32, dev) ** c
+            bc2 = 1 - self._const("b2", 0.999, torch.float32, dev) ** c
         epoch = torch.div(count, self.steps_per_epoch, rounding_mode="floor")
         decays = (epoch >= self._const("epoch_step", self.epoch_step, torch.int64, dev)).sum()
         neg_lr = self._const("neg_lrs", self.neg_lrs, torch.float32, dev).index_select(
             0, decays.view(1))
+        # 2-5 over buckets of the trained leaves: elementwise, so the bits do
+        # not depend on the buckets, and the temporaries are a bucket's
+        for bucket in self.buckets:
+            self._bucket(bucket, params, grads, state, ok, scale, bc1, bc2, neg_lr)
+        self._count_(count, 1, ok)
+
+    def _bucket(self, bucket, params, grads, state, ok, scale, bc1, bc2, neg_lr) -> None:
+        trained = [self.trained[k] for k in bucket]
+        p = [params[i] for i in trained]
+        g = [grads[i] if grads[i] is not None else torch.zeros_like(params[i]) for i in trained]
+        g = torch._foreach_mul(g, scale)
+        # 2. L2 added to the gradient
+        if self.weight_decay:
+            torch._foreach_add_(g, p, alpha=self.weight_decay)
+        # 3. Adam moments
+        if self.algo == "adam":
+            b1, b2, eps = 0.9, 0.999, 1e-8
+            old_mu = [state["mu"][k] for k in bucket]
+            old_nu = [state["nu"][k] for k in bucket]
+            mu = torch._foreach_mul(old_mu, b1)
+            torch._foreach_add_(mu, g, alpha=1 - b1)
+            nu = torch._foreach_mul(old_nu, b2)
+            torch._foreach_addcmul_(nu, g, g, value=1 - b2)
+            del g
+            g = torch._foreach_div(mu, bc1)
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(g, den)
+            del den
+            select_(old_mu, mu, ok)
+            select_(old_nu, nu, ok)
+            del mu, nu
+        # 4-5. the group factor, then -lr(step)
+        torch._foreach_mul_(g, [self.factors[i] for i in trained])
         torch._foreach_mul_(g, neg_lr[0])
         if ok is None:
             torch._foreach_add_(p, g)
         else:
             select_(p, torch._foreach_add(p, g), ok)
-        self._count_(count, 1, ok)

@@ -155,6 +155,9 @@ class Engine:
         self.apply_fn = apply_fn
         self.axis = self.model_axis = self._world = None
         if mesh is not None:
+            from mgnns_tpu_torch.parallel.sharding import refuse_encoder
+
+            refuse_encoder(params, "a mesh")
             from mgnns_tpu_torch.parallel.collectives import DataAxis, ModelAxis, world_axis
 
             self.axis = DataAxis.of(mesh, self.device)
@@ -280,13 +283,19 @@ class Engine:
         self.step += 1
         return loss
 
-    def _train_core(self, batch: dict, cm: torch.Tensor, apply_now: bool) -> torch.Tensor:
+    def _train_core(self, batch: dict, cm: torch.Tensor, apply_now: bool,
+                    hold: bool = False) -> torch.Tensor:
         """The device work of a train step on a device batch, the same on the
         loop path, the eager plan path and in a captured step: it reads no
-        host value that changes between steps."""
+        host value that changes between steps.  ``hold``: the whole step's
+        work with its update held, as the nan-guard holds a non-finite one
+        (a capture's warm-up): the parameters, the optimizer state, the
+        statistics and ``cm`` keep their values."""
         loss, grads, logits, new_bs = self._loss_and_grads(batch)
         with torch.no_grad(), tracing.stage("engine.optimizer"):
             ok = torch.isfinite(loss) if self.nan_guard else None
+            if hold:
+                ok = torch.zeros((), dtype=torch.bool, device=loss.device)
             self.opt.update(tree_leaves(self.params), grads, self.opt_state, ok, apply_now)
             stats = tree_leaves(self.batch_stats)
             if stats:

@@ -196,6 +196,9 @@ def export_predictor(pred: Predictor, out_dir: str) -> torch.export.ExportedProg
     ``max_batch`` rows, without gradients.  Returns the program it saved."""
     if pred.forward_fn is not None:
         raise ValueError("this Predictor serves a loaded program; export the model it came from")
+    if pred.cfg is not None and pred.cfg.text_encoder is not None:
+        raise NotImplementedError("a model with the MoE text encoder cannot be exported yet: "
+                                  "its routing has no export rules; serve it live")
     os.makedirs(out_dir, exist_ok=True)
     batch = _example_batch(pred)
     tree = _weight_tree(pred.params, pred.batch_stats)

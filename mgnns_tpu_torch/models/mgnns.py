@@ -4,7 +4,10 @@ Port of the JAX package's ``mgnns_tpu/models/mgnns.py`` (reference
 ``models/Multi_GCN_Multihead_att.py``, forward ``:431-567``):
 
 text channel   — text-level GCN over the global PMI graph -> [B, 300], and a
-                 2-layer BiLSTM memory bank [B, L, 300];
+                 2-layer BiLSTM memory bank [B, L, 300], or with
+                 ``cfg.text_encoder`` a ``deepseek_v3`` stack
+                 (:mod:`mgnns_tpu_torch.nn.moe`, its own stages) and a
+                 2048 -> 300 projection in its place;
 object channel — ResNet-101 trunk -> [B, 14, 14, 2048] at 448 px; memory bank
                  via 2048->300 linear; global max pool; 2-layer GCN over the
                  object graph fused by ``pooled @ x^T``; label-query attention
@@ -43,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from mgnns_tpu_torch.config import ModelConfig
 from mgnns_tpu_torch import tracing
 from mgnns_tpu_torch.graphs.cooccur import gen_adj
-from mgnns_tpu_torch.nn import attention, image_gcn, lstm, resnet, text_gcn
+from mgnns_tpu_torch.nn import attention, image_gcn, lstm, moe, resnet, text_gcn
 from mgnns_tpu_torch.nn.core import (
     RngStream, as_param, dropout, embedding, embedding_init, leaky_relu, linear, linear_init,
     scope, sharded,
@@ -132,9 +135,13 @@ def mgnns_init(
         "text_gcn": text_gcn.text_gcn_init(g, cfg.vocab_size, cfg.emb_size, num_edges,
                                            node_weights=node_embedding,
                                            edge_weights=edge_weights),
-        "embedding": embedding_init(g, cfg.vocab_size, cfg.emb_size, weights=vocab_embedding),
-        "lstm": lstm.lstm_init(g, cfg.emb_size, cfg.hidden_size, cfg.num_layers, cfg.bidirectional),
     }
+    if cfg.text_encoder is not None:
+        p["encoder"] = moe.encoder_init(g, cfg.text_encoder, d)
+    else:
+        p["embedding"] = embedding_init(g, cfg.vocab_size, cfg.emb_size, weights=vocab_embedding)
+        p["lstm"] = lstm.lstm_init(g, cfg.emb_size, cfg.hidden_size, cfg.num_layers,
+                                   cfg.bidirectional)
     for side, trunk, depth in (("object", object_trunk, 101), ("place", place_trunk, 50)):
         if trunk is None:
             trunk = resnet.resnet_init(g, depth=depth)
@@ -236,7 +243,8 @@ def _image_channel(params: dict, batch_stats: dict, consts: dict, image: torch.T
 def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
                 cfg: ModelConfig, train: bool = False,
                 generator: torch.Generator | None = None,
-                axis=None, model=None) -> tuple[torch.Tensor, dict, dict]:
+                axis=None, model=None,
+                moe_counts: torch.Tensor | None = None) -> tuple[torch.Tensor, dict, dict]:
     """Forward pass (``mgnns_tpu/models/mgnns.py:277-380``).
 
     Args:
@@ -254,6 +262,8 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
         same axis (the engine's).
       model: the :class:`~mgnns_tpu_torch.parallel.sharding.Shards` view of
         the model axis over ``params`` when they are this rank's shards.
+      moe_counts: the text encoder's token counts
+        (:func:`mgnns_tpu_torch.nn.moe.token_counts`), added to when given.
     Returns:
       (logits [B, num_labels], new_batch_stats, aux); ``aux`` holds
       ``head_diversity`` (the image->text stacks' mean over the batch) when
@@ -270,13 +280,19 @@ def mgnns_apply(params: dict, batch_stats: dict, consts: dict, batch: dict, *,
             ngram=(batch["eids"].shape[-1] - 1) // 2, dropout_rate=cfg.text_dropout,
             train=train, generator=rngs.next("text_gcn"),
             model=scope(model, "text_gcn")), "mgnns.text_gcn")     # [B, 300]
-    with tracing.stage("mgnns.lstm"):
-        emb = embedding(params["embedding"]["table"], batch["ids"],
-                        sharded(model, "embedding/table"))
-        text_memory_bank, _ = lstm.lstm_apply(
-            params["lstm"], emb, batch["lens"], dropout_rate=cfg.dropout, train=train,
-            generator=rngs.next("lstm"))                            # [B, L, 300]
-        text_memory_bank = tracing.grad_mark(text_memory_bank, "mgnns.lstm")
+    if cfg.text_encoder is not None:
+        # every position, as the published batched forward; the fusion's key
+        # mask leaves the padded ones out.  No dropout in the encoder
+        text_memory_bank = moe.encoder_apply(params["encoder"], batch["ids"], cfg.text_encoder,
+                                             cfg.cdtype, moe_counts)  # [B, L, 300]
+    else:
+        with tracing.stage("mgnns.lstm"):
+            emb = embedding(params["embedding"]["table"], batch["ids"],
+                            sharded(model, "embedding/table"))
+            text_memory_bank, _ = lstm.lstm_apply(
+                params["lstm"], emb, batch["lens"], dropout_rate=cfg.dropout, train=train,
+                generator=rngs.next("lstm"))                        # [B, L, 300]
+            text_memory_bank = tracing.grad_mark(text_memory_bank, "mgnns.lstm")
 
     image = normalize_image_batch(batch["image"], cfg.cdtype)
     with tracing.stage("mgnns.object_channel"):

@@ -149,10 +149,23 @@ def shard_leaves(leaves: list, placements: list[Placement], axis) -> list:
     return [shard_tensor(t, p, axis.rank, axis.size) for t, p in zip(leaves, placements)]
 
 
+def refuse_encoder(params, where: str) -> None:
+    """Raise ``NotImplementedError`` when ``params`` hold a MoE text
+    encoder: its experts are held one share a card, and exchanging tokens
+    with the cards that hold the others is not written yet."""
+    if isinstance(params, dict) and "encoder" in params:
+        raise NotImplementedError(
+            f"the MoE text encoder cannot run on {where} yet: it has no sharding rules, and "
+            "the exchange of tokens with the cards that hold the other experts is not "
+            "implemented; run it on one card")
+
+
 def shard_tree(tree, axis, rules, heads: int | None = None):
     """(this rank's tree, {path: Placement}) of a tree of whole leaves on the
     model ``axis`` (a :class:`~mgnns_tpu_torch.parallel.collectives.
-    ModelAxis`, or anything with its ``rank`` and ``size``)."""
+    ModelAxis`, or anything with its ``rank`` and ``size``).  A MoE text
+    encoder (an ``encoder`` subtree) has no rules yet and is refused."""
+    refuse_encoder(tree, "a model axis")
     paths = [p.lstrip("/") for p in tree_paths(tree)]
     leaves = tree_leaves(tree)
     placements = [place(p, tuple(t.shape), axis.size, rules, heads)

@@ -145,6 +145,10 @@ class Predictor:
         if mesh is not None and forward_fn is not None:
             raise ValueError("a mesh needs the live model: an exported program is a "
                              "single-device program")
+        if mesh is not None:
+            from mgnns_tpu_torch.parallel.sharding import refuse_encoder
+
+            refuse_encoder(params, "a mesh")
         self.device = resolve_device(device)
         self.vocab = vocab
         self.graph = graph

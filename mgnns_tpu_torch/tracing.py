@@ -47,8 +47,12 @@ STAGES = ("engine.forward", "engine.backward", "engine.all_reduce", "engine.opti
           "mgnns.fusion")
 GRAD_MARKED = ("mgnns.text_gcn", "mgnns.lstm", "mgnns.object_channel", "mgnns.place_channel",
                "mgnns.fusion")
+# the MoE text encoder's stages (nn/moe.py), after the others so that their
+# marks keep their ids
+ENCODER_STAGES = ("encoder.attention", "encoder.routing", "encoder.experts", "encoder.mlp")
 MARKS = (tuple(f"{s}.{edge}" for s in STAGES for edge in ("begin", "end"))
-         + tuple(f"{s}.bwd" for s in GRAD_MARKED))
+         + tuple(f"{s}.bwd" for s in GRAD_MARKED)
+         + tuple(f"{s}.{edge}" for s in ENCODER_STAGES for edge in ("begin", "end", "bwd")))
 _MARK_IDS = {name: i for i, name in enumerate(MARKS)}
 _MARK_KERNEL = re.compile(r"mgnns_mark_(\d+)$")
 
