@@ -10,10 +10,10 @@ Phases (any failure exits non-zero, and no result line is printed):
 0. the card: name and power limit, torch's global TF32 flags as found (left
    as they are) and the conv precision the package pins for its float32
    trunk convolutions;
-1. build every CUDA kernel (K1, K2, the BiLSTM's two) from
-   ``mgnns_tpu_torch/kernels/csrc``; ptxas's registers, stack and spills of
-   K1 and K2 at the model's window (g=4) and of the BiLSTM's kernels, which
-   must use no local memory;
+1. build every CUDA kernel (K1, K2, the BiLSTM's two, the optimizer's)
+   from ``mgnns_tpu_torch/kernels/csrc``; ptxas's registers, stack and
+   spills of K1 and K2 at the model's window (g=4), of the BiLSTM's kernels
+   and of ``adam.cu``'s, which must use no local memory;
 2. K1 against its plain PyTorch version on the card, exactly, at the model's
    shape, a small odd one, g=0 and g=16 at full width and D=33 (the scalar
    path), the bench's and the eval ladder's batches (32 to 512) and the dry
@@ -31,6 +31,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    benchmark's 5-90-token lengths and with 0, 1 and L: the outputs within
    1e-5, dgates within 1e-4 of scale; kernel (profiler), plain, cuDNN's
    unmasked bidirectional layer (the yardstick) and bound times;
+2d. the optimizer's kernels (``kernels/adam.py``) against the plain chain
+   (``torch._foreach_*`` and ``torch.where``) on the card, one Adam step
+   from the same state over the fusion model's trained leaf set at full
+   width (its trunk conv gradients channels_last, as the bf16 convs give
+   them), over 256 M elements in 8 leaves and over the moonlight cell's 960
+   trained leaves (its encoder at small widths: two update launches), with
+   moments that cancel nothing: moments within 1e-6 of the larger of the
+   plain chain's value and the step's start, each parameter's step within
+   1e-6 of the plain chain's plus a unit in the last place; the guarded copy byte-equal to
+   ``torch.where`` on the fusion model's BN running statistics, ``ok`` true
+   and false; the chain's time, its kernels' (profiler), the bound (bytes
+   over 3.35 TB/s) and the plain chain's, the launches and
+   ``adam.grad_copies``;
 3. the serving path at the full width of the fusion model: a seeded
    synthetic corpus over a 20,153-word vocabulary, its PMI graph, 80/365-class
    label graphs, ``ModelConfig()`` weights from a seed, and a
@@ -196,10 +209,11 @@ import numpy as np
 import torch
 
 from mgnns_tpu_torch import tracing
-from mgnns_tpu_torch.config import DataConfig, ModelConfig, TextGraphConfig
+from mgnns_tpu_torch.config import DataConfig, ModelConfig, MoeEncoderConfig, TextGraphConfig
 from mgnns_tpu_torch.data.dataset import TumblrDataset
 from mgnns_tpu_torch.data.loader import DeviceLoader
 from mgnns_tpu_torch.engine.metrics import confusion_init
+from mgnns_tpu_torch.engine.optim import Optimizer
 from mgnns_tpu_torch.engine.train import Engine, cross_entropy
 from mgnns_tpu_torch.graphs.pmi import cal_pmi
 from mgnns_tpu_torch.kernels import build, edge_max
@@ -496,6 +510,177 @@ def phase2c_lstm() -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 2d
+
+P2D_EDGES = 321_876  # the benchmark's PMI edge table (321,875 edges and id 0)
+P2D_BIG = (8, 32 << 20)  # leaves x elements of the 256 M-element set
+# Moonlight-16B-A3B's encoder stack (27 layers, the first dense, 8 of 64
+# routed experts held) at small widths, in the fusion model: the moonlight
+# cell's leaf list, 960 trained leaves, so its update takes two launches
+# (MAX_UPDATE_LEAVES) and its chunk size is the cell's, at 85 M elements
+P2D_MOE = MoeEncoderConfig(hidden_size=64, num_heads=2, kv_lora_rank=16, qk_nope_head_dim=8,
+                           qk_rope_head_dim=8, v_head_dim=8, intermediate_size=64,
+                           moe_intermediate_size=16, vocab_rows=64)
+P2D_LR = 1e-3  # steps far above a unit in the last place of the parameters
+
+
+def adam_bound_ms(n_grad: int, n_trained: int) -> float:
+    """Least time of one step of the chain: read every gradient for the
+    norm (4 B an element), read p, g, m, v and write p, m, v of every
+    trained element (28 B), at 3.35 TB/s."""
+    return (4 * n_grad + 28 * n_trained) / HBM_BYTES_PER_S * 1e3
+
+
+def _ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of float32 values at ``|t|``, in float64."""
+    a = t.abs()
+    return (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
+
+
+def _worst(triples, bound) -> float:
+    """The largest ``|a - b| / bound(a, b, before)`` over float32 ``(a, b,
+    before)``, in float64."""
+    worst = 0.0
+    for a, b, before in triples:
+        if a.numel():
+            err = (a.double() - b.double()).abs() / bound(a, b, before)
+            worst = max(worst, float(err.max()))
+    return worst
+
+
+def adam_against_plain(tree: dict, g: torch.Generator) -> dict:
+    """One Adam step of the kernels (``_kernel_chain``) and of the plain
+    chain (``_plain_chain``: ``torch._foreach_*`` and ``torch.where``) on
+    the card from the same state: the parameters, gradients of 1e-2 (the
+    trunk convs' channels_last, as the bf16 convs give them) and moments
+    whose m has each gradient's sign, so that no sum of the chain cancels.
+    The worst of each check over its bound: the moments within 1e-6 of the
+    larger of the plain chain's value and the step's start, and each
+    parameter's step within 1e-6 of the plain chain's step plus one unit in
+    the last place of the larger parameter (each chain rounds ``p + step``;
+    a bound on the parameters' own size would be blind to the step where
+    ``|p|`` is large, and too tight where ``p + step`` cancels)."""
+    from mgnns_tpu_torch.kernels import adam
+
+    opt = Optimizer(tree, lr=P2D_LR, lrp=0.1, weight_decay=1e-5, grad_clip=10.0)
+    leaves = tree_leaves(tree)
+    grads = [(torch.randn(t.shape, generator=g, device="cuda") * 1e-2).contiguous(
+        memory_format=torch.channels_last if t.dim() == 4 and t.shape[2] > 1 else
+        torch.contiguous_format) for t in leaves]
+    state = opt.init(tree)
+    for m, v, i in zip(state["mu"], state["nu"], opt.trained):
+        m.copy_(grads[i].sign() * (0.5 + torch.rand(m.shape, generator=g, device="cuda")) * 1e-3)
+        v.copy_(torch.rand(m.shape, generator=g, device="cuda") * 1e-5)
+    moments = [t.clone() for t in state["mu"] + state["nu"]]
+    pk, pp = [t.clone() for t in leaves], [t.clone() for t in leaves]
+    sk = {"count": state["count"].clone(), "mu": state["mu"], "nu": state["nu"]}
+    sp = {"count": state["count"].clone(), "mu": [t.clone() for t in state["mu"]],
+          "nu": [t.clone() for t in state["nu"]]}
+    ok = torch.tensor(True, device="cuda")
+    adam.launches = adam.norm_launches = 0
+    opt._kernel_chain(pk, grads, sk, ok)
+    launches, norm_launches = adam.launches, adam.norm_launches
+    opt._plain_chain(pp, grads, sp, ok)
+    torch.cuda.synchronize()
+    out = {
+        "moments": _worst(zip(sk["mu"] + sk["nu"], sp["mu"] + sp["nu"], moments),
+                          lambda a, b, c: torch.maximum(b.abs(), c.abs()).double() * 1e-6
+                          + 1e-12),
+        # the parameters' difference is the steps' difference: bound it by
+        # the plain chain's step and the rounding of each chain's p + step
+        "steps": _worst(zip(pk, pp, leaves),
+                        lambda a, b, c: (b.double() - c.double()).abs() * 1e-6
+                        + _ulp(torch.maximum(a.abs(), b.abs()))),
+        "launches": launches, "norm_launches": norm_launches, "grad_copies": adam.grad_copies,
+        "trained": len(opt.trained), "elements": sum(leaves[i].numel() for i in opt.trained),
+        "grad_elements": sum(t.numel() for t in leaves)}
+    out["chains"] = (opt, grads, pk, sk, pp, sp, ok)
+    return out
+
+
+def select_against_where(stats: list[torch.Tensor], g: torch.Generator) -> None:
+    """The guarded copy (``adam.select``, one launch) against ``torch.where``
+    on ``stats`` (the fusion model's BN running statistics), new values with
+    a NaN in each: every byte equal for ``ok`` true and false."""
+    from mgnns_tpu_torch.kernels import adam
+
+    news = []
+    for t in stats:
+        new = t * 1.5 + torch.rand(t.shape, generator=g, device="cuda")
+        new.view(-1)[0] = math.nan
+        news.append(new)
+    for flag in (True, False):
+        ok = torch.tensor(flag, device="cuda")
+        kernel, plain = [t.clone() for t in stats], [t.clone() for t in stats]
+        adam.select_launches = 0
+        adam.select(kernel, news, ok)
+        launches = adam.select_launches
+        for old, new in zip(plain, news):
+            torch.where(ok, new, old, out=old)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+                   for a, b in zip(kernel, plain))
+        log(f"phase 2d: guarded copy of the fusion model's {len(stats)} BN statistics "
+            f"({sum(t.numel() for t in stats)} elements), ok {flag}: {launches} launch, "
+            f"{'byte-equal to' if same else 'UNLIKE'} torch.where")
+        if not same or launches != 1:
+            raise SystemExit("phase 2d: the guarded copy disagrees with torch.where")
+
+
+def phase2d_adam() -> dict:
+    from mgnns_tpu_torch.kernels import adam
+
+    t_phase = time.perf_counter()
+    r = np.random.default_rng(5)
+    init = dict(num_edges=P2D_EDGES, label_embedding=r.standard_normal((7, 300)),
+                object_A=np.eye(80), place_A=np.eye(365),
+                object_inp=r.standard_normal((80, 300)),
+                place_inp=r.standard_normal((365, 300)), device="cuda")
+    fusion, stats, _ = mgnns_init(ModelConfig(edges_num=P2D_EDGES), **init)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    select_against_where(tree_leaves(stats), g)
+    del stats
+    out = {}
+    sets = (("fusion", lambda: fusion),
+            ("256M", lambda: {"gc1": [torch.randn(P2D_BIG[1], generator=g, device="cuda")
+                                      for _ in range(P2D_BIG[0])]}),
+            ("moonlight-leaves", lambda: mgnns_init(
+                ModelConfig(edges_num=P2D_EDGES, text_encoder=P2D_MOE), **init)[0]))
+    for name, make in sets:
+        tree = make()
+        res = adam_against_plain(tree, g)
+        opt, grads, pk, sk, pp, sp, ok = res.pop("chains")
+        split = name == "moonlight-leaves"
+        line = (f"phase 2d: Adam over the {name} set ({res['trained']} trained leaves, "
+                f"{res['elements']} elements): kernels against the plain chain on the card, "
+                f"worst over its bound: moments {res['moments']}, steps {res['steps']}; "
+                f"{res['launches']} update, {res['norm_launches']} norm launches, "
+                f"{res['grad_copies']} gradients copied")
+        if not split:
+            res["chain_ms"] = cuda_ms(lambda: opt._kernel_chain(pk, grads, sk, ok), iters=5,
+                                      reps=3)
+            res["update_us"], res["norm_us"] = (
+                kernel_us(lambda: opt._kernel_chain(pk, grads, sk, ok), kernel, 10)
+                for kernel in ("mgnns_adam_update_kernel", "mgnns_adam_sumsq_kernel"))
+            res["plain_ms"] = cuda_ms(lambda: opt._plain_chain(pp, grads, sp, ok), iters=3,
+                                      reps=3)
+            res["bound_ms"] = adam_bound_ms(res["grad_elements"], res["elements"])
+            line += (f"; the chain {res['chain_ms']} ms a step, update kernel "
+                     f"{res['update_us']} us and norm kernel {res['norm_us']} us a launch "
+                     f"(profiler), bound {res['bound_ms']} ms (bytes), plain chain "
+                     f"{res['plain_ms']} ms")
+        log(f"{line}; {card_line()}")
+        want = -(-res["trained"] // adam.MAX_UPDATE_LEAVES)
+        if not max(res["moments"], res["steps"]) <= 1.0 or \
+                res["launches"] != want or (split and want < 2):
+            raise SystemExit(f"phase 2d: the optimizer kernels disagree with the plain chain on "
+                             f"the {name} set")
+        out[name] = res
+        del tree, opt, grads, pk, sk, pp, sp
+    log(f"phase 2d: {time.perf_counter() - t_phase} s")
+    return out
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -546,15 +731,15 @@ def last_chunk_stages_ms() -> dict:
             if s.attrs.get("chunk") == chunk}
 
 
-def kernel_us(fn, name: str) -> float:
+def kernel_us(fn, name: str, calls: int = 50) -> float:
     """Device time a launch of the kernel whose name contains ``name``, by
-    the profiler over 50 calls of ``fn``."""
+    the profiler over ``calls`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     k = [e for e in device_kernels(prof) if name in e.key]
@@ -2737,12 +2922,18 @@ def main() -> int:
     for lib in libs.values():
         log(lib.log.strip())
     # K1's chain and K2's register rings must stay in registers at the model's
-    # window (g=4), and the BiLSTM kernels' tiles; the log is the one kept
+    # window (g=4), the BiLSTM kernels' tiles, and the optimizer kernels'
+    # tables in their parameters; the log is the one kept
     # beside the library, built in this run or before
     for kernel, lib, mangled in (("K1", "edge_max", K1_PTXAS_NAME),
                                  ("K2", "edge_max", K2_PTXAS_NAME),
                                  ("LSTM forward", "lstm", "mgnns_lstm_fwd_kernel"),
-                                 ("LSTM backward", "lstm", "mgnns_lstm_bwd_kernel")):
+                                 ("LSTM backward", "lstm", "mgnns_lstm_bwd_kernel"),
+                                 ("Adam update", "adam", "mgnns_adam_update_kernelILb1E"),
+                                 ("SGD update", "adam", "mgnns_adam_update_kernelILb0E"),
+                                 ("norm", "adam", "mgnns_adam_sumsq_kernel"),
+                                 ("norm's finish", "adam", "mgnns_adam_sumsq_finish_kernel"),
+                                 ("guarded copy", "adam", "mgnns_adam_select_kernel")):
         report = ptxas_report(libs[lib].log, mangled)
         local = local_memory_bytes(report)
         log(f"phase 1: ptxas, {kernel}: {' | '.join(report.splitlines())}")
@@ -2753,6 +2944,7 @@ def main() -> int:
     k1 = phase2_k1()
     k2 = phase2b_k2()
     phase2c_lstm()
+    phase2d_adam()
     setup = phase3(k1)
     p4 = phase4(setup, k1, k2)
     phase4b(p4)

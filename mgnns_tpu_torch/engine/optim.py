@@ -26,13 +26,18 @@ axis a leaf may be this rank's shard (:meth:`Optimizer.set_model_axis`): the
 clip's norm then sums the squares of the sharded leaves over the model axis
 and counts each replicated leaf once, and the moments of a shard are its
 own.  A gather table's zero padding rows get zero gradients, so their
-moments, their weight decay and their updates stay zero.  The arithmetic runs on
-``torch._foreach_*`` lists, so a step costs a few multi-tensor launches and
-no host sync.  After the clip's norm over every leaf, steps 2-5 run over
-buckets of consecutive trained leaves of at most :data:`BUCKET_BYTES`
+moments, their weight decay and their updates stay zero.
+
+On CUDA leaves the chain runs as the hand-written kernels of
+:mod:`mgnns_tpu_torch.kernels.adam`: the clip's norm in two deterministic
+passes, then one pass that reads each trained leaf's parameter, gradient and
+moments once and writes them once, the guard inside; :func:`select_` is one
+launch too.  CPU leaves take the plain chain, on ``torch._foreach_*`` lists:
+after the clip's norm over every leaf, steps 2-5 run over buckets of
+consecutive trained leaves of at most :data:`BUCKET_BYTES`
 (:func:`buckets`), so that their temporaries are a few copies of a bucket
 and not of every parameter; the arithmetic is elementwise, so the bits do
-not depend on the buckets.
+not depend on the buckets.  Neither reads a host value from the device.
 
 The step state lives on the device: the applied-step ``count`` (from which
 the step-decayed rate and the float32 bias corrections are computed) and,
@@ -145,7 +150,21 @@ def reduce_gradients(grads: list[torch.Tensor | None], loss: torch.Tensor, axis
 
 def select_(olds: list[torch.Tensor], news: list[torch.Tensor], ok: torch.Tensor | None) -> None:
     """``old = new`` where the device flag ``ok`` holds (always for None);
-    a non-finite ``new`` is never multiplied into the kept value."""
+    a non-finite ``new`` is never multiplied into the kept value.  CUDA
+    tensors take one guarded-copy launch (:func:`~mgnns_tpu_torch.kernels.
+    adam.select`)."""
+    if olds and olds[0].is_cuda:
+        from mgnns_tpu_torch.kernels import adam
+
+        adam.select(olds, news, ok)
+    else:
+        _plain_select_(olds, news, ok)
+
+
+def _plain_select_(olds: list[torch.Tensor], news: list[torch.Tensor],
+                   ok: torch.Tensor | None) -> None:
+    """:func:`select_` as ``torch.where`` on each tensor, on any device: the
+    plain chain's guard."""
     if ok is None:
         torch._foreach_copy_(olds, news)
         return
@@ -280,20 +299,27 @@ class Optimizer:
             return
         self._chain(params, grads, state, ok)
 
-    def _model_axis_norm(self, grads) -> torch.Tensor:
-        """The global norm of the whole gradient from this rank's shards:
-        the squares of the sharded leaves summed over the model axis, each
-        replicated leaf's counted once."""
+    def _clip_norm(self, grads, sumsq) -> torch.Tensor:
+        """The clip's global norm over every present gradient, frozen leaves
+        included; a missing gradient is zeros and adds nothing.
+        ``sumsq(idx)`` gives (the sum of the squares of the gradients at
+        positions ``idx``, its square root), device scalars.  On a model
+        axis the squares of the sharded leaves are summed over the axis and
+        each replicated leaf's are counted once."""
+        have = [i for i, g in enumerate(grads) if g is not None]
+        if self.model is None:
+            return sumsq(have)[1]
         from mgnns_tpu_torch.parallel.collectives import model_sum
 
         axis, sharded = self.model
-        ref = next(g for g in grads if g is not None)
-        sq = []
-        for split in (True, False):
-            part = [g for g, s in zip(grads, sharded) if g is not None and s == split]
-            norms = torch.stack(torch._foreach_norm(part)) if part else ref.new_zeros(1)
-            sq.append((norms * norms).sum())
-        return torch.sqrt(model_sum(sq[0], axis) + sq[1])
+
+        def squares(split):
+            part = [i for i in have if sharded[i] == split]
+            if not part:
+                return torch.zeros((), dtype=torch.float32, device=grads[have[0]].device)
+            return sumsq(part)[0]
+
+        return torch.sqrt(model_sum(squares(True), axis) + squares(False))
 
     @staticmethod
     def _count_(t: torch.Tensor, inc, ok) -> None:
@@ -307,19 +333,11 @@ class Optimizer:
             self._consts[key] = torch.tensor(value, dtype=dtype, device=device)
         return self._consts[key]
 
-    def _chain(self, params, grads, state, ok) -> None:
-        # 1. clip by the global norm of every leaf, frozen ones included; a
-        # missing gradient is zeros and adds nothing to the norm
-        present = [g for g in grads if g is not None]
-        if self.model is None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
-        else:
-            norm = self._model_axis_norm(grads)
-        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
-        count = state["count"]
+    def _schedule(self, count: torch.Tensor):
+        """(bc1, bc2, -lr(step)) from the device count: the bias corrections
+        in float32, as optax computes them (None under SGD), and the step
+        decay's rate, ``[1]``."""
         dev = count.device
-        # bias corrections in float32 from the device count, as optax
-        # computes them; -lr(step), the step decay from the device count
         bc1 = bc2 = None
         if self.algo == "adam":
             c = (count + 1).to(torch.float32)
@@ -329,6 +347,44 @@ class Optimizer:
         decays = (epoch >= self._const("epoch_step", self.epoch_step, torch.int64, dev)).sum()
         neg_lr = self._const("neg_lrs", self.neg_lrs, torch.float32, dev).index_select(
             0, decays.view(1))
+        return bc1, bc2, neg_lr
+
+    def _chain(self, params, grads, state, ok) -> None:
+        if state["count"].is_cuda:
+            self._kernel_chain(params, grads, state, ok)
+        else:
+            self._plain_chain(params, grads, state, ok)
+
+    def _kernel_chain(self, params, grads, state, ok) -> None:
+        """The chain on CUDA leaves: the kernels of
+        :mod:`mgnns_tpu_torch.kernels.adam`."""
+        from mgnns_tpu_torch.kernels import adam
+
+        grads = adam.match_layouts(params, grads)
+        norm = self._clip_norm(grads, lambda idx: adam.sum_squares(
+            [params[i] for i in idx], [grads[i] for i in idx]))
+        count = state["count"]
+        bc1, bc2, neg_lr = self._schedule(count)
+        adam_ = self.algo == "adam"
+        adam.update([params[i] for i in self.trained], [grads[i] for i in self.trained],
+                    state["mu"] if adam_ else None, state["nu"] if adam_ else None,
+                    [self.factors[i] for i in self.trained], norm=norm, clip=self.grad_clip,
+                    weight_decay=self.weight_decay, bc1=bc1, bc2=bc2, neg_lr=neg_lr, ok=ok)
+        self._count_(count, 1, ok)
+
+    def _plain_chain(self, params, grads, state, ok) -> None:
+        """The chain on ``torch._foreach_*`` lists, the plain version: CPU
+        leaves take it, and on CUDA leaves it is the kernels' reference (its
+        guard is ``torch.where`` there too)."""
+        def sumsq(idx):
+            norms = torch.stack(torch._foreach_norm([grads[i] for i in idx]))
+            return (norms * norms).sum(), torch.linalg.vector_norm(norms)
+
+        # 1. clip by the global norm
+        norm = self._clip_norm(grads, sumsq)
+        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
+        count = state["count"]
+        bc1, bc2, neg_lr = self._schedule(count)
         # 2-5 over buckets of the trained leaves: elementwise, so the bits do
         # not depend on the buckets, and the temporaries are a bucket's
         for bucket in self.buckets:
@@ -359,8 +415,8 @@ class Optimizer:
             torch._foreach_add_(den, eps)
             torch._foreach_div_(g, den)
             del den
-            select_(old_mu, mu, ok)
-            select_(old_nu, nu, ok)
+            _plain_select_(old_mu, mu, ok)
+            _plain_select_(old_nu, nu, ok)
             del mu, nu
         # 4-5. the group factor, then -lr(step)
         torch._foreach_mul_(g, [self.factors[i] for i in trained])
@@ -368,4 +424,4 @@ class Optimizer:
         if ok is None:
             torch._foreach_add_(p, g)
         else:
-            select_(p, torch._foreach_add(p, g), ok)
+            _plain_select_(p, torch._foreach_add(p, g), ok)

@@ -6,8 +6,9 @@ Port of the JAX package's ``mgnns_tpu/engine/train.py``:
   optimizer (:mod:`mgnns_tpu_torch.engine.optim`) and the confusion-matrix
   update.  The nan-guard is a device flag ``ok = isfinite(loss)``: where it
   is false the parameters, the optimizer state and the BN running
-  statistics keep their old values (``torch.where``, never a multiply, since
-  a NaN times 0 is NaN) and the step adds nothing to the confusion matrix;
+  statistics keep their old values (``torch.where`` on the CPU, kernels
+  that store nothing on CUDA; never a multiply, since a NaN times 0 is NaN)
+  and the step adds nothing to the confusion matrix;
   the host reads nothing per step;
 - metrics accumulate on the device in a confusion matrix and are finalized
   per epoch; the per-step losses are read back once per epoch, stacked;

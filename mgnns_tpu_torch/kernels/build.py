@@ -7,7 +7,8 @@ and an unchanged one is loaded as it is, with nvcc's log kept beside it
 (``lib<name>-<hash>.log``).  Nothing is compiled at import: the first
 :func:`load` of any source builds every source, and :func:`build_all` starts
 one ``nvcc`` per source at once (a captured step launches K1, the BiLSTM's
-kernels and the stage marks of ``mark.cu`` alike).
+kernels, the optimizer's of ``adam.cu`` and the stage marks of ``mark.cu``
+alike).
 
 The host C++ of ``mgnns_tpu_torch/csrc/<name>.cpp`` (the native
 preprocessing, :mod:`mgnns_tpu_torch.native`) is built the same way by the
@@ -32,7 +33,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_ext")
-SOURCES = ("edge_max", "lstm", "mark")
+SOURCES = ("adam", "edge_max", "lstm", "mark")
 HOST_CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # native/Makefile's flags
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")

@@ -3,8 +3,10 @@ K2 and the BiLSTM's recurrence), a
 forward and a train step on the card against the same on the CPU, the
 kernels' launch counts across a train epoch, a ResNet trunk on the card
 against the CPU under the package's pinned float32 conv precision, the
-fusion model at bf16 against float32, and the benchmark's modes on the card
-(K1 and K2 in every forward and step, the measured bf16 peak).
+fusion model at bf16 against float32, the benchmark's modes on the card
+(K1 and K2 in every forward and step, the measured bf16 peak), and the
+optimizer's kernels against the chain's float32 arithmetic and the plain
+chain.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 those are absent: ``python -m pytest --noconftest tests/test_torch_cuda.py``
@@ -12,6 +14,7 @@ on a machine with an NVIDIA GPU.  Without a card every test here skips.
 """
 
 import json
+import math
 
 import numpy as np
 import pytest
@@ -702,3 +705,374 @@ def test_bench_torch_runs_in_a_fresh_process(cuda_device):
     out = json.loads(r.stdout.splitlines()[-1])
     assert out["metric"] == "text_channel_eval_samples_per_sec_per_chip" and out["value"] > 0
     assert out["device"]["name"] == torch.cuda.get_device_name(0) and 0 < out["mfu"] <= 1.05
+
+
+# ------------------------------------------------------- the optimizer kernels
+
+
+# the leaves of _adam_case in leaf order: (group, name, shape)
+ADAM_LEAVES = [("text_gcn", "w", (33, 17)), ("text_gcn", "b", (7,)),
+               ("object_trunk", "conv", (8, 6, 3, 3)), ("object_trunk", "pw", (16, 8, 1, 1)),
+               ("object_trunk", "bn", (5,)), ("gc1", "odd", (1001,)), ("gc1", "empty", (0, 4)),
+               ("gc1", "col", (9, 5)), ("gc1", "none", (3, 3)), ("gc1", "view", (4099,)),
+               ("lstm", "w", (70_001,)), ("object_A", None, (4, 4))]
+
+
+def _adam_case(device, seed, aligned=False):
+    """A parameter tree (groups text x10, trunk x0.1, base, lstm x10, and a
+    frozen leaf with a gradient: the norm only) and three steps' gradients
+    on ``device``, made on the CPU: odd sizes, a zero-size leaf, a None
+    gradient, a column-sliced gradient (copied), a channels_last conv
+    gradient (read through its index map) and a 1x1 one, and a parameter
+    and gradient 4 bytes past an aligned address.  Values are normal; with
+    ``aligned`` each element of a leaf and of its gradients has one sign,
+    drawn per element, and a magnitude in [0.5, 1.5), so that the decay
+    adds to the gradient and each moment sums terms of one sign: nothing
+    cancels."""
+    g = torch.Generator().manual_seed(seed)
+    signs = [torch.randint(0, 2, shape, generator=g) * 2.0 - 1 for _, _, shape in ADAM_LEAVES]
+
+    def draw(k):
+        shape = ADAM_LEAVES[k][2]
+        if aligned:
+            return signs[k] * (0.5 + torch.rand(shape, generator=g))
+        return torch.randn(shape, generator=g)
+
+    def placed(k, t):
+        """``t`` on ``device`` in leaf k's layout."""
+        name = ADAM_LEAVES[k][1]
+        if name == "col":   # a column slice: not dense
+            full = torch.zeros(9, 8)
+            full[:, :5] = t
+            return full.to(device)[:, :5]
+        if name == "view":  # 4 bytes past the allocation
+            return torch.cat([torch.zeros(1), t]).to(device)[1:]
+        if t.dim() == 4:
+            t = t.contiguous(memory_format=torch.channels_last)
+        return t.to(device)
+
+    params: dict = {}
+    for k, (group, name, _) in enumerate(ADAM_LEAVES):
+        t = draw(k)
+        t = placed(k, t) if name == "view" else t.to(device)
+        if name is None:
+            params[group] = t
+        else:
+            params.setdefault(group, {})[name] = t
+    steps = []
+    for _ in range(3):
+        grads = [placed(k, draw(k)) for k in range(len(ADAM_LEAVES))]
+        grads[8] = None
+        steps.append(grads)
+    return params, steps
+
+
+# (clip, weight decay): the norm over the clip (scale < 1) and under it, and
+# no decay
+ADAM_CASES = [(0.5, 1e-3), (1e4, 1e-3), (0.5, 0.0)]
+ADAM_IDS = ["clipped", "unclipped", "no-decay"]
+
+
+def _adam_run(device, algo, clip, wd, seed=0, ok=True):
+    """Three steps of the chain on ``device``: (leaves, state) after each."""
+    from mgnns_tpu_torch.engine.optim import Optimizer
+    from mgnns_tpu_torch.utils import tree_leaves
+
+    params, steps = _adam_case(device, seed)
+    opt = Optimizer(params, lr=1e-2, lrp=0.1, weight_decay=wd, grad_clip=clip, algo=algo)
+    state = opt.init(params)
+    leaves = tree_leaves(params)
+    out = [[t.detach().cpu().clone() for t in leaves + opt.tensors(state)]]
+    for grads in steps:
+        opt.apply(leaves, grads, state, torch.tensor(ok, device=device))
+        out.append([t.detach().cpu().clone() for t in leaves + opt.tensors(state)])
+    return out
+
+
+def _chain_f32(p, g, m, v, factor, scale, wd, bc1, bc2, neg_lr):
+    """One leaf's step of the chain in engine/optim.py's order, one float32
+    numpy operation at a time (each correctly rounded, none fused: torch's
+    CPU sqrt and its division by a scalar are not): the arithmetic the
+    kernels are written to.  numpy arrays in and out: (p, m, v)."""
+    f = np.float32
+    g = (np.zeros_like(p) if g is None else g) * scale
+    if wd:
+        g = g + f(wd) * p
+    u = g
+    if m is not None:
+        m = m * f(0.9) + f(0.1) * g
+        v = v * f(0.999) + f(0.001) * (g * g)
+        u = (m / bc1) / (np.sqrt(v / bc2) + f(1e-8))
+    return p + (u * f(factor)) * neg_lr, m, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["adam", "sgd"])
+@pytest.mark.parametrize("clip,wd", ADAM_CASES, ids=ADAM_IDS)
+def test_adam_kernels_compute_the_chain(cuda_device, algo, clip, wd):
+    """Three steps of the kernels against the chain evaluated on CPU copies
+    in the same float32 operations (``_chain_f32``), from the step's norm
+    and the schedule's device scalars: every parameter and moment bit for
+    bit, whatever its gradient's layout; the norm within 1e-6 of the
+    gradients' float64 norm."""
+    from mgnns_tpu_torch.engine.optim import Optimizer
+    from mgnns_tpu_torch.kernels import adam
+    from mgnns_tpu_torch.utils import tree_leaves
+
+    params, steps = _adam_case(cuda_device, 0)
+    opt = Optimizer(params, lr=1e-2, lrp=0.1, weight_decay=wd, grad_clip=clip, algo=algo)
+    state = opt.init(params)
+    leaves = tree_leaves(params)
+    host = [t.cpu().numpy().copy() for t in leaves]
+    hm = [t.cpu().numpy().copy() for t in state["mu"]] if algo == "adam" else None
+    hv = [t.cpu().numpy().copy() for t in state["nu"]] if algo == "adam" else None
+    f = np.float32
+    for grads in steps:
+        matched = adam.match_layouts(leaves, grads)
+        have = [i for i, t in enumerate(matched) if t is not None]
+        norm = adam.sum_squares([leaves[i] for i in have], [matched[i] for i in have])[1]
+        norm = f(norm.item())
+        bc1, bc2, neg_lr = (None if t is None else f(t.reshape(()).item())
+                            for t in opt._schedule(state["count"]))
+        opt.apply(leaves, grads, state, torch.tensor(True, device=cuda_device))
+        want_norm = math.sqrt(sum(float((t.double() ** 2).sum()) for t in grads if t is not None))
+        assert abs(float(norm) - want_norm) <= 1e-6 * want_norm
+        scale = f(1) if norm < f(clip) else (f(1) / norm) * f(clip)
+        for k, i in enumerate(opt.trained):
+            gi = None if grads[i] is None else grads[i].cpu().numpy()
+            host[i], mk, vk = _chain_f32(host[i], gi, None if hm is None else hm[k],
+                                         None if hv is None else hv[k], opt.factors[i], scale,
+                                         wd, bc1, bc2, neg_lr)
+            if hm is not None:
+                hm[k], hv[k] = mk, vk
+        got = leaves + (state["mu"] + state["nu"] if hm is not None else [])
+        for j, (a, b) in enumerate(zip(got, host + (hm + hv if hm is not None else []))):
+            assert np.array_equal(a.cpu().numpy(), b), f"tensor {j}"
+
+
+def _ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of float32 values at ``|t|``, in float64."""
+    a = t.abs()
+    return (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["adam", "sgd"])
+@pytest.mark.parametrize("clip,wd", ADAM_CASES, ids=ADAM_IDS)
+def test_adam_kernels_near_the_plain_chain(cuda_device, algo, clip, wd):
+    """Three steps of the kernels against the plain chain
+    (``_plain_chain``: ``torch._foreach_*`` and ``torch.where``) on the
+    card, each step from the same state (a copy of the kernels'), on
+    ``_adam_case``'s aligned values, where nothing cancels: every parameter
+    and moment within rtol 1e-6 (atol 1e-12) of the plain chain's, and
+    every parameter's step within 1e-6 of the plain chain's step plus one
+    unit in the last place of the larger parameter (each rounds the sum
+    ``p + step``).  The two need not be bit-equal: the norm's sum runs in another
+    order and the card's ``_foreach_*`` kernels fuse some multiply-adds.
+    The counters show one update launch, two norm launches and the one
+    copied gradient a step."""
+    from mgnns_tpu_torch.engine.optim import Optimizer
+    from mgnns_tpu_torch.kernels import adam
+    from mgnns_tpu_torch.utils import tree_leaves
+
+    params, steps = _adam_case(cuda_device, 2, aligned=True)
+    opt = Optimizer(params, lr=1e-2, lrp=0.1, weight_decay=wd, grad_clip=clip, algo=algo)
+    state = opt.init(params)
+    leaves = tree_leaves(params)
+    ok = torch.tensor(True, device=cuda_device)
+    adam.launches = adam.norm_launches = 0
+    for step, grads in enumerate(steps, 1):
+        before = [t.clone() for t in leaves]
+        plain = [t.clone() for t in leaves]
+        pstate = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+                  for k, v in state.items()}
+        opt.apply(leaves, grads, state, ok)
+        opt._plain_chain(plain, grads, pstate, ok)
+        for i, (a, b) in enumerate(zip(leaves + opt.tensors(state), plain + opt.tensors(pstate))):
+            a, b = a.double(), b.double()
+            err = (a - b).abs() / (1e-6 * b.abs() + 1e-12)
+            assert not err.numel() or float(err.max()) <= 1.0, (
+                f"step {step}, tensor {i}: {float(err.max())} of the bound")
+        for i, (a, b, p0) in enumerate(zip(leaves, plain, before)):
+            # the parameters' difference is the steps' difference
+            err = (a.double() - b.double()).abs() / (
+                1e-6 * (b.double() - p0.double()).abs() + _ulp(torch.maximum(a.abs(), b.abs())))
+            assert not err.numel() or float(err.max()) <= 1.0, (
+                f"step {step}, leaf {i}'s step: {float(err.max())} of the bound")
+    assert (adam.launches, adam.norm_launches, adam.leaves, adam.grad_copies) == (3, 6, 11, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["adam", "sgd"])
+def test_adam_kernels_near_the_cpu_chain(cuda_device, algo):
+    """Three steps of the kernels against the plain chain on CPU copies of
+    the same tensors in the clipped case, where the decay term cancels the
+    clipped gradient (``wd * p`` and ``g * scale`` of one size): each
+    tensor within 1e-4 of its largest magnitude.  The CPU's
+    ``torch._foreach_*`` kernels fuse multiply-adds and its norm sums in
+    another order, and where ``g * scale + wd * p`` cancels, Adam's
+    division by ``sqrt(v) + eps`` carries the last bits into the step (up
+    to 1.9e-5 of scale).  It prints, for each step and kind of tensor, the
+    elements beyond rtol 1e-6, and for the first step how many of them sit
+    where a sum cancelled to under half its terms' magnitude (``g * scale
+    + wd * p`` for the moments, ``p + step`` for the parameters) and the
+    two norms' errors against float64."""
+    from mgnns_tpu_torch.kernels import adam
+    from mgnns_tpu_torch.utils import tree_leaves
+
+    clip, wd = 0.5, 1e-3
+    got = _adam_run(cuda_device, algo, clip, wd)
+    want = _adam_run(torch.device("cpu"), algo, clip, wd)
+    n_leaves = len(ADAM_LEAVES)
+    trained = [k for k, (group, _, _) in enumerate(ADAM_LEAVES) if group != "object_A"]
+    # each tensor of a step's list: (kind, leaf)
+    kinds = [("p", k) for k in range(n_leaves)] + [("count", None)]
+    if algo == "adam":
+        kinds += [("mu", k) for k in trained] + [("nu", k) for k in trained]
+    # the first step's norms and each element's cancellation
+    _, steps = _adam_case(torch.device("cpu"), 0)
+    present = [t for t in steps[0] if t is not None]
+    exact = math.sqrt(sum(float((t.double() ** 2).sum()) for t in present))
+    cpu_norm = float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present))))
+    card, card_steps = _adam_case(cuda_device, 0)
+    leaves = tree_leaves(card)
+    matched = adam.match_layouts(leaves, card_steps[0])
+    have = [i for i, t in enumerate(matched) if t is not None]
+    card_norm = float(adam.sum_squares([leaves[i] for i in have],
+                                       [matched[i] for i in have])[1])
+    scale = min(1.0, clip / exact)
+    p0 = [t.double() for t in want[0][:n_leaves]]
+    cancelled = {}
+    for k in trained:
+        gs = steps[0][k].double() * scale if steps[0][k] is not None else 0 * p0[k]
+        cancelled[("mu", k)] = cancelled[("nu", k)] = (
+            (gs + wd * p0[k]).abs() < 0.5 * (gs.abs() + wd * p0[k].abs()))
+        p1 = want[1][k].double()
+        cancelled[("p", k)] = p1.abs() < 0.5 * (p0[k].abs() + (p1 - p0[k]).abs())
+    for step in range(1, len(want)):
+        far: dict = {}
+        for i, (x, y) in enumerate(zip(got[step], want[step])):
+            if not y.numel():
+                continue
+            err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+            assert err <= 1e-4, f"step {step}, tensor {i}: {err} of scale"
+            beyond = (x.double() - y.double()).abs() > 1e-6 * y.double().abs() + 1e-12
+            kind = kinds[i][0]
+            n, c = far.get(kind, (0, 0))
+            cut = int(cancelled[kinds[i]][beyond].sum()) if kinds[i] in cancelled else 0
+            far[kind] = (n + int(beyond.sum()), c + cut)
+        total = sum(t.numel() for t in want[step][:n_leaves])
+        said = {k: v[0] for k, v in far.items()} if step > 1 else far
+        print(f"{algo}, clipped, step {step}: elements beyond rtol 1e-6 of the CPU chain "
+              f"{said} of {total} a kind"
+              + (" (beyond, of which where a sum cancelled); the norms' relative errors "
+                 f"against float64: kernels {abs(card_norm - exact) / exact}, CPU chain "
+                 f"{abs(cpu_norm - exact) / exact}" if step == 1 else ""))
+
+
+@pytest.mark.cuda
+def test_adam_kernels_are_deterministic_and_capture(cuda_device):
+    """Two runs of the kernels give the same bits, and so do three replays
+    of a captured step against three eager ones."""
+    from mgnns_tpu_torch.engine.optim import Optimizer
+    from mgnns_tpu_torch.utils import tree_leaves
+
+    first, second = (_adam_run(cuda_device, "adam", 0.5, 1e-3) for _ in range(2))
+    for a, b in zip(first[-1], second[-1]):
+        assert torch.equal(a, b)
+    params, steps = _adam_case(cuda_device, 0)
+    grads = steps[0]
+    opt = Optimizer(params, lr=1e-2, grad_clip=0.5)
+    state = opt.init(params)
+    leaves = tree_leaves(params)
+    flag = torch.tensor(False, device=cuda_device)
+    opt.update(leaves, grads, state, flag, True)  # held: the constants made, nothing moved
+    assert int(state["count"]) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.update(leaves, grads, state, flag, True)
+    flag.fill_(True)
+    for _ in range(3):
+        graph.replay()
+    eager_params, _ = _adam_case(cuda_device, 0)
+    eager = Optimizer(eager_params, lr=1e-2, grad_clip=0.5)
+    estate = eager.init(eager_params)
+    eleaves = tree_leaves(eager_params)
+    for _ in range(3):
+        eager.apply(eleaves, grads, estate, torch.tensor(True, device=cuda_device))
+    torch.cuda.synchronize()
+    for a, b in zip(leaves + opt.tensors(state), eleaves + eager.tensors(estate)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_adam_kernels_store_nothing_where_ok_is_false(cuda_device):
+    """A step whose flag is false, after one that moved everything, leaves
+    every parameter and state tensor bit-equal, its gradients non-finite."""
+    from mgnns_tpu_torch.engine.optim import Optimizer
+    from mgnns_tpu_torch.utils import tree_leaves
+
+    params, steps = _adam_case(cuda_device, 1)
+    opt = Optimizer(params, lr=1e-2, grad_clip=0.5)
+    state = opt.init(params)
+    leaves = tree_leaves(params)
+    opt.apply(leaves, steps[0], state, torch.tensor(True, device=cuda_device))
+    before = [t.clone() for t in leaves + opt.tensors(state)]
+    bad = [None if t is None else torch.full_like(t, float("nan")) for t in steps[1]]
+    opt.apply(leaves, bad, state, torch.tensor(False, device=cuda_device))
+    torch.cuda.synchronize()
+    for a, b in zip(before, leaves + opt.tensors(state)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_guarded_copy_kernel(cuda_device):
+    """``select_`` on the card: one launch copies every tensor byte for byte
+    where the flag holds (and for None), keeps every one where it does not
+    (NaN sources included), and takes odd sizes, an unaligned view, another
+    dtype and a source laid out unlike its target."""
+    from mgnns_tpu_torch.engine.optim import select_
+    from mgnns_tpu_torch.kernels import adam
+
+    def case():
+        g = torch.Generator(device=cuda_device).manual_seed(4)
+        olds = [torch.randn(5, device=cuda_device, generator=g),
+                torch.randn(1 + 70_001, device=cuda_device, generator=g)[1:],
+                torch.randint(0, 9, (13,), device=cuda_device, generator=g, dtype=torch.int64),
+                torch.randn(0, device=cuda_device), torch.randn(4, 6, device=cuda_device,
+                                                                generator=g)]
+        news = [torch.full((5,), float("nan"), device=cuda_device),
+                torch.randn(70_001, device=cuda_device, generator=g),
+                torch.randint(0, 9, (13,), device=cuda_device, generator=g, dtype=torch.int64),
+                torch.randn(0, device=cuda_device),
+                torch.randn(6, 4, device=cuda_device, generator=g).t()]
+        return olds, news
+
+    for ok in (False, True, None):
+        olds, news = case()
+        kept = [t.clone() for t in olds]
+        adam.select_launches = 0
+        select_(olds, news, None if ok is None else torch.tensor(ok, device=cuda_device))
+        torch.cuda.synchronize()
+        assert adam.select_launches == 1
+        for old, new, k in zip(olds, news, kept):
+            want = k if ok is False else new
+            assert torch.equal(old.view(-1).view(torch.uint8) if old.numel() else old,
+                               want.reshape(-1).view(torch.uint8) if old.numel() else want)
+
+
+@pytest.mark.cuda
+def test_fusion_step_updates_every_leaf_in_one_launch(cuda_device):
+    """One Engine step of the 64 px fusion model: every trained leaf in one
+    update launch, the norm in two, the BN statistics' guarded copy in one;
+    the gradients copied to match their parameters are counted (printed)."""
+    from mgnns_tpu_torch.engine.metrics import confusion_init
+    from mgnns_tpu_torch.kernels import adam
+
+    engine, _, batches = _fusion_plan_engine(cuda_device, 0.0)
+    adam.launches = adam.norm_launches = adam.select_launches = 0
+    engine.train_step(batches[0], confusion_init(7, cuda_device))
+    torch.cuda.synchronize()
+    print(f"fusion step: {adam.leaves} trained leaves, {adam.grad_copies} gradients copied")
+    assert adam.leaves == len(engine.opt.trained) > 600
+    assert (adam.launches, adam.norm_launches, adam.select_launches) == (1, 2, 1)
