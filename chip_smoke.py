@@ -16,7 +16,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    and of ``adam.cu``'s, which must use no local memory;
 2. K1 against its plain PyTorch version on the card, exactly, at the model's
    shape, a small odd one, g=0 and g=16 at full width and D=33 (the scalar
-   path), the bench's and the eval ladder's batches (32 to 512) and the dry
+   path), the benchmark's and the eval ladder's batches (32 to 512) and the dry
    run's (1 and 2 rows of L=16); kernel, plain and bound times, and the time
    of a pass that only writes K1's output (the floor of a kernel of that
    size);
@@ -158,16 +158,6 @@ Phases (any failure exits non-zero, and no result line is printed):
    probabilities within 1e-5), K1 once a chunk on each rank, and both ranks
    stopped by ``shutdown()``.  NCCL refuses two ranks on one card, so the
    model axis at N > 1 runs over gloo only here;
-11. the benchmark (``mgnns_tpu_torch.bench``, what ``bench_torch.py`` runs):
-   the card's bf16 peak measured once (at most 105% of the data sheet's
-   dense rate), then ``bench.run`` in text, full and train modes on 64
-   samples of the seeded synthetic corpus at B 32 / 32 / 16 with bf16
-   trunks: each prints one JSON line with ``bench.py``'s metric name, a
-   positive value and ``0 < mfu <= 1.05``; K1 once per forward (and K2 once
-   per train step) in the profiler's device events of one more epoch of
-   the headline path and in the wrapper counts of the timed eager forwards
-   and steps; the live captured eval epoch's predictions equal to the
-   device-cached eager epoch's;
 12. the entry surface (``mgnns_tpu_torch.entry``, the counterpart of
    ``__graft_entry__.py``) and the last measuring tools: ``entry()``'s
    flagship forward on cuda:0 (448 px, L=100, bf16 trunks, B=2), finite
@@ -311,9 +301,9 @@ def k1_bound_ms(lens: torch.Tensor, L: int, D: int, ngram: int) -> tuple[float, 
 def phase2_k1() -> dict:
     max_err = 0.0
     # the model's shape, a small odd one, the smallest and largest windows at
-    # full width, D = 33, which takes the scalar path, the batches the bench
-    # and the eval ladder launch it at (phase 11's 32, the text mode's 64,
-    # the full mode's 128, the ladder's 256 and 512), and the dry run's
+    # full width, D = 33, which takes the scalar path, the batches the
+    # benchmark and the eval ladder launch it at (phase 12's 32 and 64, the
+    # eval cell's 128, the ladder's 256 and 512), and the dry run's
     # (phase 12: a data-axis rank's 1 row and the whole batch of 2, L = 16)
     for shape in ((16, 100, 300, 4), (3, 7, 5, 2), (16, 100, 300, 0), (16, 100, 300, 16),
                   (4, 20, 33, 4), (32, 100, 300, 4), (64, 100, 300, 4), (128, 100, 300, 4),
@@ -883,7 +873,7 @@ def phase3_native(vocab: list[str], texts: list[str], graph, pred: Predictor) ->
 
 def phase3(k1: dict) -> None:
     t0 = time.perf_counter()
-    # the bench's data: the seeded corpus, its PMI graph and the label constants
+    # the flagship data: the seeded corpus, its PMI graph and the label constants
     data = flagship_data("synthetic")
     vocab, texts, graph, c = data.vocab, data.ds.text.texts, data.graph, data.consts_np
     log(f"phase 3: corpus {len(texts)} docs, vocab {len(vocab)}, PMI edges "
@@ -2751,63 +2741,6 @@ def phase9c(root: str) -> None:
     log(f"phase 9c: {time.perf_counter() - t_phase} s; {card_line()}")
 
 
-# ----------------------------------------------------------------- phase 11
-
-P11_SAMPLES = 64
-P11_BATCH = {"text": 32, "full": 32, "train": 16}
-BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device", "data", "flops_per_sample",
-              "peak_tflops", "mfu")
-
-
-def phase11() -> None:
-    """The benchmark (``mgnns_tpu_torch.bench``, what ``bench_torch.py``
-    runs) in its three modes at 64 synthetic samples (see the module's
-    docstring)."""
-    from mgnns_tpu_torch import bench
-    from mgnns_tpu_torch.tools import _bench_util
-
-    t_phase = time.perf_counter()
-    peak = _bench_util.measured_bf16_peak()
-    log(f"phase 11: measured bf16 peak {peak} TFLOP/s ({time.perf_counter() - t_phase} s; the "
-        f"data sheet's dense rate {_bench_util.BF16_DATASHEET_TFLOPS}); {card_line()}")
-    data = _bench_util.flagship_data("synthetic", n_records=P11_SAMPLES)
-    failed = []
-    for mode, B in P11_BATCH.items():
-        t0 = time.perf_counter()
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            line = bench.run(mode, batch_size=B, data=data, peak_tflops=peak, trace=True,
-                             t_start=time.time())
-        printed = buf.getvalue().splitlines()
-        log(f"phase 11: bench {mode} at B={B} ({time.perf_counter() - t0} s): {printed[-1]}")
-        tr, n = line["trace"], line["launches"]
-        problems = [
-            len(printed) != 1 or json.loads(printed[0]) != line,
-            any(k not in line for k in BENCH_KEYS), line["metric"] != bench.METRICS[mode],
-            not line["value"] > 0, not 0 < line["mfu"] <= 1.05,
-            line["peak_tflops"] > 1.05 * _bench_util.BF16_DATASHEET_TFLOPS,
-            line["device"]["name"] != torch.cuda.get_device_name(0),
-            line["data"] != "synthetic", tr["k1_per"] != 1.0]
-        if mode == "train":
-            problems += [tr["k2_per"] != 1.0, not line["epoch_fused"],
-                         not n["k1_timed"] == n["k2_timed"] == n["timed_steps"],
-                         not line["value_step_microbench"] > 0,
-                         line["config"]["compute_dtype"] != "bfloat16"]
-        else:
-            problems += [n["k1_timed"] != n["timed_forwards"]]
-        if mode == "full":
-            problems += [line["live_preds_differ_from_cached"] != 0,
-                         not line["live_pipeline_fused"],
-                         not all(line[k] > 0 for k in ("value_device_cached", "value_live_streaming",
-                                                        "value_live_per_batch_upload")),
-                         line["config"]["compute_dtype"] != "bfloat16"]
-        if any(problems):
-            failed.append(f"{mode}: checks {[i for i, p in enumerate(problems) if p]} failed")
-    log(f"phase 11: {time.perf_counter() - t_phase} s; {card_line()}")
-    if failed:
-        raise SystemExit("phase 11: " + "; ".join(failed))
-
-
 # ----------------------------------------------------------------- phase 12
 
 P12_SAMPLES = 64
@@ -2955,7 +2888,6 @@ def main() -> int:
     p9 = phase9a(setup)
     phase9c(root)
     phase10(setup, p9)
-    phase11()
     p12 = phase12()
 
     log(f"total {time.perf_counter() - t_start} s")
@@ -2974,8 +2906,6 @@ def main() -> int:
                    "Predictor(mesh=...) on a (1, 2) model axis",
                    "cli.serve.make_server on a (1, 2) model axis (rank 0's front end and "
                    "MeshLink, 2 gloo ranks)",
-                   "bench.run text (eager, cached batches), full (captured eval over tables, "
-                   "and eager), train (captured steps over tables, and eager)",
                    "entry.entry (the flagship forward at production shapes)",
                    "entry.dryrun_multichip (2 gloo ranks on cuda:0, each rank's forwards)",
                    "tools.full_split_fused_eval, tools.eval_batch_ladder, "
@@ -2988,7 +2918,6 @@ def main() -> int:
                    "Engine(mesh=...) on 1 rank over NCCL, captured train steps",
                    "torchrun cli.main --multihost --mesh_data 1",
                    "Engine(mesh=...) on a (1, 2) model axis over gloo, each rank's backward",
-                   "bench.run train (captured steps over tables, and eager)",
                    "entry.dryrun_multichip (2 gloo ranks on cuda:0, each rank's train steps)"]
     # phase 12's paths, each counted from 0 (replays of a captured step are
     # not counted by the wrappers)

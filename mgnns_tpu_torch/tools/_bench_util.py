@@ -1,11 +1,10 @@
-"""Shared measurement scaffolding of the port's benchmark and its tools.
+"""Shared measurement scaffolding of the port's measuring tools.
 
 The counterpart of the JAX package's ``tools/_bench_util.py``: one copy of
 the slope timing, the measured bf16 peak, the card's description and the
-flagship data and model setup, so that :mod:`mgnns_tpu_torch.bench`,
-:mod:`mgnns_tpu_torch.tools.roofline` and
-:mod:`mgnns_tpu_torch.tools.bench_serving` measure the same programs the same
-way.
+flagship data and model setup, so that :mod:`mgnns_tpu_torch.tools.roofline`,
+the other tools under :mod:`mgnns_tpu_torch.tools` and ``chip_smoke.py``
+measure the same programs the same way.
 
 Data.  ``MGNNS_DATA=<tree>`` reads a tree in the reference's layout
 (``all_anno_json/val_all_anno.json``, the vocabulary, GloVe and adjacency

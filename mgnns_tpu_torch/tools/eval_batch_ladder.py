@@ -1,9 +1,8 @@
 """The eval headline's share of the card's peak at B = 32..512.
 
 The counterpart of the JAX package's ``tools/eval_batch_ladder.py``.  The
-program is the bench's full headline (:mod:`mgnns_tpu_torch.bench`): the
-fusion model's captured eval step (bf16 trunks, frozen BatchNorm) replayed
-over an epoch plan of the split's device tables, one loader per rung.  Each
+program is the fusion model's captured eval step (bf16 trunks, frozen
+BatchNorm) replayed over an epoch plan of the split's device tables, one loader per rung.  Each
 rung is timed with :func:`~mgnns_tpu_torch.tools._bench_util.timed` (slope
 timing over whole epochs, after a first epoch that captures the step), its
 ``seconds`` are one batch's, and its FLOPs are

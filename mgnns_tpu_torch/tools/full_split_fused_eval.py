@@ -7,7 +7,7 @@ tool; an eval reads the running statistics either way) over the whole split of
 seeded synthetic corpus's 10,000 records at 448 px, whose pixel table is
 10,000 x 448*448*3 uint8 = 6.02 GB on the card (the real val split has
 10,035 records; that run waits for TumEmo data in the repository).  This is
-the scale the bench's 512 records never reach.
+the scale the benchmark's cells (1,024 and 2,048 records) never reach.
 
 The split's pixels and text live in device tables (``DeviceLoader(
 device_images=True, device_text=True)``), and ``Engine(eval_only=True)``

@@ -27,7 +27,6 @@ from mgnns_tpu_torch.cli import prepare as pprepare
 from mgnns_tpu_torch.engine.checkpoint import Checkpointer
 from mgnns_tpu_torch.nn import resnet
 from tests.test_mvsa import _make_mvsa_tree
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import CPU, np_tree
 
 

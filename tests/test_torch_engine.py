@@ -43,7 +43,6 @@ from mgnns_tpu_torch.engine.optim import Optimizer, label_params
 from mgnns_tpu_torch.engine.train import Engine, cross_entropy
 from mgnns_tpu_torch.models.text_only import text_model_apply
 from mgnns_tpu_torch.utils import tree_leaves
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import LABELS, datasets, make_data, records, step_losses
 
 CPU = "cpu"

@@ -18,7 +18,6 @@ from mgnns_tpu_torch.config import ModelConfig
 from mgnns_tpu_torch.data.loader import DeviceLoader
 from mgnns_tpu_torch.engine.train import Engine
 from mgnns_tpu_torch.models.mgnns import mgnns_apply
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import CPU, datasets, make_data, np_tree, step_losses
 
 

@@ -40,7 +40,7 @@ from mgnns_tpu_torch.config import ModelConfig
 from mgnns_tpu_torch.kernels import edge_max
 from mgnns_tpu_torch.nn import resnet
 
-from torch_train_common import few_torch_threads, np_tree  # noqa: F401
+from torch_train_common import np_tree
 
 SMALL = dict(vocab_size=257, edges_num=515, image_size=64)
 

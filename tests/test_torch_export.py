@@ -42,7 +42,6 @@ from mgnns_tpu_torch.models import text_only as text_only_model
 from mgnns_tpu_torch.models.mgnns import mgnns_init
 from mgnns_tpu_torch.models.text_only import text_model_init
 from mgnns_tpu_torch.serving import Predictor
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import CPU
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -21,7 +21,6 @@ from mgnns_tpu_torch.graphs.pmi import cal_pmi
 from mgnns_tpu_torch.graphs.vocab import build_vocab
 from mgnns_tpu_torch.models.text_only import text_model_init
 from mgnns_tpu_torch.serving import BatchingFrontend, Predictor, save_preproc
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import CPU
 
 CORPUS = ["happy joy smile great day", "sad cry tears bad day", "joy smile happy fun",

@@ -35,7 +35,6 @@ from mgnns_tpu_torch.models.mgnns import mgnns_apply
 from mgnns_tpu_torch.models.text_only import text_model_apply
 from mgnns_tpu_torch.nn.core import SiteGenerators
 from mgnns_tpu_torch.utils import tree_leaves, tree_map
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import CPU, build_toy, datasets, make_data
 
 B = 3  # 10 records: three full batches and one of a single record

@@ -34,7 +34,6 @@ from mgnns_tpu_torch.models import import_reference as IR
 from mgnns_tpu_torch.models.mgnns import DEAD_MODULES, mgnns_apply
 from mgnns_tpu_torch.nn import attention, coattention, lstm
 from mgnns_tpu_torch.utils import tree_leaves, tree_map, tree_paths
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import CPU, np_tree
 
 CORPUS = ["the cat sat on the mat", "a dog met a cat", "the mat sat still",

@@ -29,7 +29,6 @@ from mgnns_tpu_torch.graphs.pmi import PmiGraph
 from mgnns_tpu_torch.models.mgnns import mgnns_apply, mgnns_init
 from mgnns_tpu_torch.models.text_only import text_model_apply
 from mgnns_tpu_torch.serving import Predictor
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 
 CORPUS = ["the cat sat on the mat", "a dog met a cat", "the mat sat still",
           "dogs and cats and logs"]

@@ -54,7 +54,6 @@ from tests.test_torch_parallel import (  # noqa: F401  (toy: a module fixture)
     _cli_args, _finish, _free_port, _records, toy,
 )
 from tests.torch_train_common import CORPUS
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRUNKS = ("object_trunk", "place_trunk")

@@ -23,7 +23,6 @@ from mgnns_tpu.nn import text_gcn as jtext_gcn
 from mgnns_tpu_torch import convert
 from mgnns_tpu_torch.graphs.cooccur import gen_adj
 from mgnns_tpu_torch.nn import attention, core, image_gcn, lstm, resnet, text_gcn
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 
 ATOL = RTOL = 1e-5
 

@@ -36,14 +36,6 @@ TINY_ENCODER = {"hidden_size": 64, "num_attention_heads": 4, "num_key_value_head
                 "experts_held": 4, "vocab_rows": 320}
 
 
-@pytest.fixture(autouse=True)
-def _few_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def tiny_config(**enc) -> dict:
     cfg = H.config_of(CELL)
     cfg.update(TINY_ENCODER, **enc)

@@ -53,7 +53,6 @@ from mgnns_tpu_torch.utils import tree_leaves, tree_unflatten
 from tests import torch_parallel_worker as W
 from tests.test_mvsa import _make_mvsa_tree
 from tests.test_torch_cli import _fusion_tree
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import (
     AUX_W, CORPUS, CPU, compare_trees, frobenius_errors, np_tree,
 )

@@ -39,7 +39,6 @@ from mgnns_tpu_torch.engine.train import Engine, cross_entropy
 from mgnns_tpu_torch.models.mgnns import mgnns_apply, normalize_image_batch
 from mgnns_tpu_torch.nn import resnet
 from mgnns_tpu_torch.utils import tree_leaves
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import (
     CPU, build_toy, compare_trees, leaf_errors, np_tree, port_grads,
 )

@@ -35,7 +35,6 @@ from mgnns_tpu_torch.engine.checkpoint import Checkpointer
 from mgnns_tpu_torch.serving import BatchingFrontend, Predictor, load_preproc
 from tests.test_mvsa import _make_mvsa_tree
 from tests.test_torch_parallel import _cli_args, _free_port
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import CPU
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

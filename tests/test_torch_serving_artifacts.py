@@ -28,7 +28,6 @@ from mgnns_tpu_torch.models.mgnns import DEAD_MODULES
 from mgnns_tpu_torch.serving import Predictor, load_preproc
 from mgnns_tpu_torch.utils import tree_leaves, tree_paths
 from tests.test_torch_cli import _fusion_tree
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import CPU
 
 # the fusion model at 32 px with frozen trunks: 4 records, one step an epoch

@@ -20,7 +20,6 @@ from mgnns_tpu_torch.kernels import build
 from mgnns_tpu_torch.tools import _bench_util as U
 from mgnns_tpu_torch.tools import eval_batch_ladder, full_split_fused_eval, warmup_breakdown
 
-from torch_train_common import few_torch_threads  # noqa: F401
 
 CPU = ["--platform", "cpu"]
 N = 8

@@ -19,7 +19,6 @@ from mgnns_tpu.nn import text_gcn as jtext_gcn
 
 from mgnns_tpu_torch.kernels import edge_max
 from mgnns_tpu_torch.nn import attention, core, text_gcn
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 
 
 # ------------------------------------------------------------------ K2

@@ -25,7 +25,6 @@ from mgnns_tpu_torch import convert
 from mgnns_tpu_torch.engine.train import cross_entropy
 from mgnns_tpu_torch.models.text_only import text_model_apply
 from mgnns_tpu_torch.utils import tree_leaves
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import (
     AUX_W, CPU, build_toy, compare_trees, fusion_case, frobenius_errors, np_tree,
     port_fusion, port_grads,

@@ -6,7 +6,6 @@ import pytest
 import torch
 
 from mgnns_tpu_torch.utils import tree_leaves
-from tests.torch_train_common import few_torch_threads  # noqa: F401  (autouse fixture)
 from tests.torch_train_common import build_toy, fusion_case, port_fusion
 
 

@@ -7,7 +7,6 @@ import json
 import os
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -33,18 +32,6 @@ from mgnns_tpu_torch.utils import tree_leaves, tree_unflatten
 
 CPU = "cpu"
 AUX_W = 0.3  # weight of the head-diversity term in the fusion loss
-
-
-@pytest.fixture(autouse=True, scope="module")
-def few_torch_threads():
-    """Run a module's torch CPU work on two threads: the tier-1 suite runs in
-    parallel workers, and each worker's torch starting a thread per core
-    slows every worker many times over.  Importing this fixture into a test
-    module turns it on there."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def np_tree(tree):
